@@ -10,17 +10,27 @@ is not 0:
    matmuls and cuDNN during the kernel check;
 2. build: kernel B1 (``ppasr_tpu_torch/csrc/fbank.cu``) with nvcc for
    sm_90a, with ptxas' register and spill report;
-3. kernel: B1 against its plain PyTorch version on the card at the main
-   path's shape (one 67-frame streaming window, stride 160), at a 16 × 10 s
-   batch (15,968 frames, stride 400) and at an odd frame count, and against
-   the host ``fbank_numpy``; CUDA-event times of both, and the bound;
+3. kernel: B1 (a packed 256-point FFT, one warp per frame, and a banded
+   mel projection) against its plain PyTorch version on the card and the
+   host ``fbank_numpy`` at the main path's shape (one 67-frame streaming
+   window, stride 160), at an odd frame count (997 frames, stride 160, also
+   from a base pointer at an odd offset) and at a 16 × 10 s batch (15,968
+   frames, stride 400);
 4. main path: the committed flagship streaming Conformer (256-dim, 12
    blocks) through ``PPASRPredictor(use_gpu=True, use_device_frontend=True)``
    on the three utterances of tests/fixtures/torch_smoke_utts.npz, offline
    and streamed in 0.16 s pieces, under PyTorch's default TF32 flags (the
    predictor turns TF32 off for its own calls); transcripts must equal the
    JAX package's recorded in the fixture, and the fbank kernel must have
-   been launched once per streamed window.
+   been launched once per streamed window;
+5. timing, after the main path, whose real-time factors are thus read
+   before the process first runs the profiler: at each shape of phase 3,
+   three rounds time in turn the kernel, the plain version,
+   ``torch.fft.rfft`` alone on the same frames, and the kernel again, each
+   per call (``call_ms``, CUDA events around back-to-back calls, host work
+   included) and the kernel and ``rfft`` also on the device alone
+   (``device_ms``, from ``torch.profiler``; a CUDA graph of the same calls
+   if the profiler records no device time); and the bound.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the one before it the kernel table as JSON; the last line is
@@ -29,6 +39,7 @@ the one before it the kernel table as JSON; the last line is
 """
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -63,8 +74,9 @@ def smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters, warmup=3):
-    """Mean milliseconds of ``fn()`` over ``iters`` runs, CUDA events."""
+def call_ms(fn, iters, warmup=3):
+    """Milliseconds per call of ``fn()``: CUDA events around ``iters``
+    back-to-back calls, so the host work of each call is included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -76,6 +88,54 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters, match=None):
+    """(device milliseconds per call of ``fn()``, method, launches seen).
+    First ``torch.profiler`` over ``iters`` calls: for each kernel whose name
+    contains ``match`` (each kernel or copy when ``match`` is None), the
+    device time that ``key_averages()`` gives for its name divided by its
+    launches, times its launches per call. The profiler may miss a few
+    launches of a run, so the mean is taken over those it recorded. If
+    it records no device time, ``iters`` calls captured into one CUDA graph,
+    whose replay is timed with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per_call_us, seen = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA or not evt.count:
+            continue
+        if match is not None and match not in evt.key:
+            continue
+        per_call_us += (evt.self_device_time_total / evt.count
+                        * max(1, round(evt.count / iters)))
+        seen += evt.count
+    if per_call_us > 0:
+        return per_call_us / 1e3, 'profiler', seen
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, 'cuda graph', None
 
 
 def bound_ms(n_frames, input_samples, num_mel_bins=80):
@@ -96,12 +156,6 @@ def bound_ms(n_frames, input_samples, num_mel_bins=80):
     t_ops = n_frames * flops_per_frame / PEAK_FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ('operations' if t_ops >= t_bytes
                                  else 'bytes')
-
-
-def direct_dft_ms(n_frames):
-    """B1's design ceiling, not a bound of fbank: the FMAs of its direct DFT
-    (400 samples × 256 bins, cos and sin) at the fp32 peak."""
-    return n_frames * 4 * 400 * 256 / PEAK_FP32_FLOPS * 1e3
 
 
 def compare(name, got, plain, host):
@@ -125,65 +179,126 @@ def compare(name, got, plain, host):
     return row
 
 
+def time_shape(name, kernel_fn, frames, iters, reps=3):
+    """Three rounds, each timing in turn the kernel, the plain version,
+    ``torch.fft.rfft`` alone on the same frames, and the kernel again: the
+    time per call (CUDA events) of each, and the device time of the kernel
+    and of ``rfft`` with the launches the profiler recorded of ``iters``
+    calls. Returns every reading and their medians."""
+    plain_fn = lambda: F.fbank_frames_torch(frames)  # noqa: E731
+    rfft_fn = lambda: torch.fft.rfft(frames, n=512)  # noqa: E731
+    turns = []
+    for rep in range(reps):
+        row = {}
+        for label, fn, match in (('kernel', kernel_fn, 'fbank_kernel'),
+                                 ('plain', plain_fn, None),
+                                 ('rfft', rfft_fn, None),
+                                 ('kernel_again', kernel_fn, 'fbank_kernel')):
+            row[f'{label}_call_ms'] = call_ms(fn, iters)
+            if label != 'plain':
+                (row[f'{label}_device_ms'], row['device_method'],
+                 row[f'{label}_launches_profiled']) = device_ms(fn, iters,
+                                                               match)
+        print(f"  {name} round {rep + 1}: " + ", ".join(
+            f"{k} {v:.6f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items()), flush=True)
+        turns.append(row)
+
+    def med(*keys):
+        return statistics.median(t[k] for t in turns for k in keys)
+    return {'device_ms': med('kernel_device_ms', 'kernel_again_device_ms'),
+            'call_ms': med('kernel_call_ms', 'kernel_again_call_ms'),
+            'plain_ms': med('plain_call_ms'),
+            'rfft_only_ms': med('rfft_call_ms'),
+            'rfft_device_ms': med('rfft_device_ms'),
+            'device_method': turns[-1]['device_method'],
+            'turns': turns}
+
+
 def check_kernel(dev):
-    """Phase 3: kernel against plain version; returns the table entry."""
+    """Phase 3: the kernel against its plain version and ``fbank_numpy`` at
+    three shapes and from a base pointer at an odd offset. Returns the
+    shapes, each with its functions, inputs and errors, for phase 5."""
     fixture = np.load(fx.OUT)
-    errs = []
+    shapes = []
+
     # the main path's shape: one 10,960-sample streaming window, stride 160
     win = fixture['pcm'][:10960].astype(np.float32)
     wav = torch.from_numpy(win).to(dev)
-    plain_fn = lambda: F.fbank_frames_torch(  # noqa: E731
-        F.frame_torch(wav[None], 400, 160, 67)[0])
-    got = fbank_cuda.fbank_window(wav, 67)
-    torch.cuda.synchronize()
-    errs.append(compare('window N=67 stride 160', got, plain_fn(),
-                        F.fbank_numpy(win)))
-    ms = cuda_ms(lambda: fbank_cuda.fbank_window(wav, 67), 200)
-    plain_ms = cuda_ms(plain_fn, 200)
-    frames67 = F.frame_torch(wav[None], 400, 160, 67)[0].contiguous()
-    rfft67 = cuda_ms(lambda: torch.fft.rfft(frames67, n=512), 200)
-    b_ms, b_by = bound_ms(67, 10960)
+    frames = F.frame_torch(wav[None], 400, 160, 67)[0].contiguous()
+    shapes.append(dict(shape='window N=67 stride 160', n_frames=67,
+                       frame_stride=160, samples=win.size, frames=frames,
+                       kernel=lambda w=wav: fbank_cuda.fbank_window(w, 67),
+                       host=F.fbank_numpy(win), iters=200))
 
     # odd frame count, stride 160
-    odd_wav = fx.speechlike(159760, seed=11)
-    wav = torch.from_numpy(odd_wav).to(dev)
-    got = fbank_cuda.fbank_window(wav, 997)
-    errs.append(compare('odd N=997 stride 160', got, F.fbank_frames_torch(
-        F.frame_torch(wav[None], 400, 160, 997)[0]), F.fbank_numpy(odd_wav)))
+    odd = fx.speechlike(159760, seed=11)
+    wav = torch.from_numpy(odd).to(dev)
+    frames = F.frame_torch(wav[None], 400, 160, 997)[0].contiguous()
+    shapes.append(dict(shape='odd N=997 stride 160', n_frames=997,
+                       frame_stride=160, samples=odd.size, frames=frames,
+                       kernel=lambda w=wav: fbank_cuda.fbank_window(w, 997),
+                       host=F.fbank_numpy(odd), iters=200))
 
     # bench.py's batch: 16 × 10 s, frames [15,968, 400], stride 400
     batch = [fx.speechlike(160000, seed=s) for s in range(16)]
     frames = torch.cat([F.frame_torch(torch.from_numpy(w).to(dev)[None], 400,
                                       160, 998)[0] for w in batch]).contiguous()
-    got = fbank_cuda.fbank_frames(frames)
-    errs.append(compare('batch N=15968 stride 400', got,
-                        F.fbank_frames_torch(frames),
-                        np.concatenate([F.fbank_numpy(w) for w in batch])))
-    batch_ms = cuda_ms(lambda: fbank_cuda.fbank_frames(frames), 20)
-    batch_plain = cuda_ms(lambda: F.fbank_frames_torch(frames), 20)
-    batch_rfft = cuda_ms(lambda: torch.fft.rfft(frames, n=512), 20)
-    batch_bound, batch_by = bound_ms(frames.shape[0], frames.numel())
-    print(f"  times: window kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b_ms:.6f} ms ({b_by}); batch kernel {batch_ms:.4f} ms, "
-          f"plain {batch_plain:.4f} ms, bound {batch_bound:.5f} ms "
-          f"({batch_by}), direct-DFT FMA ceiling "
-          f"{direct_dft_ms(frames.shape[0]):.5f} ms", flush=True)
+    shapes.append(dict(shape='batch N=15968 stride 400',
+                       n_frames=frames.shape[0], frame_stride=400,
+                       samples=frames.numel(), frames=frames,
+                       kernel=lambda f=frames: fbank_cuda.fbank_frames(f),
+                       host=np.concatenate([F.fbank_numpy(w) for w in batch]),
+                       iters=50))
+
+    for case in shapes:
+        case['errors'] = compare(case['shape'], case['kernel'](),
+                                 F.fbank_frames_torch(case['frames']),
+                                 case.pop('host'))
+
+    # the 997 frames again from a view one sample into its storage, which
+    # the kernel reads with 4-byte loads
+    shifted = torch.from_numpy(np.concatenate([[0.0], odd]).astype(
+        np.float32)).to(dev)[1:]
+    compare('odd offset N=997 stride 160',
+            fbank_cuda.fbank_window(shifted, 997),
+            F.fbank_frames_torch(F.frame_torch(shifted[None], 400, 160,
+                                               997)[0]), F.fbank_numpy(odd))
+    return shapes
+
+
+def time_kernel(shapes):
+    """Phase 5: the timings of every shape of phase 3, beside its bound;
+    returns the table entry."""
+    rows = []
+    for case in shapes:
+        b_ms, b_by = bound_ms(case['n_frames'], case['samples'])
+        row = {k: case[k] for k in ('shape', 'n_frames', 'frame_stride')}
+        row.update(bound_ms=b_ms, bound_by=b_by, **case['errors'],
+                   **time_shape(case['shape'], case['kernel'], case['frames'],
+                                case['iters']))
+        print(f"  {row['shape']}: kernel device {row['device_ms']:.6f} ms "
+              f"({row['device_method']}), per call {row['call_ms']:.6f} ms; "
+              f"plain {row['plain_ms']:.6f} ms; rfft alone "
+              f"{row['rfft_only_ms']:.6f} ms per call, "
+              f"{row['rfft_device_ms']:.6f} ms on the device; bound "
+              f"{b_ms:.7f} ms ({b_by}); medians of 3 rounds", flush=True)
+        rows.append(row)
+    main = rows[0]
     return {
         'name': 'fbank', 'route': 'cuda',
         'source': 'ppasr_tpu_torch/csrc/fbank.cu',
         'replaces': 'ppasr_tpu/ops/fbank_pallas.py:65',
         'tpu_function': '_fbank_kernel',
         'launches': None,
-        'max_abs_err': max(e['max_abs_err'] for e in errs),
-        'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
-        'library_ms': None,
+        'max_abs_err': max(r['max_abs_err'] for r in rows),
+        'ms': main['device_ms'], 'device_ms': main['device_ms'],
+        'call_ms': main['call_ms'], 'plain_ms': main['plain_ms'],
+        'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+        'library_ms': None, 'rfft_only_ms': main['rfft_only_ms'],
+        'device_method': main['device_method'],
         'shape': 'one streaming window: 67 frames at stride 160',
-        'rfft_only_ms': rfft67, 'direct_dft_ms': direct_dft_ms(67),
-        'batch': {'n_frames': int(frames.shape[0]), 'ms': batch_ms,
-                  'plain_ms': batch_plain, 'bound_ms': batch_bound,
-                  'bound_by': batch_by, 'rfft_only_ms': batch_rfft,
-                  'direct_dft_ms': direct_dft_ms(frames.shape[0])},
-        'errors': errs,
+        'shapes': rows,
     }
 
 
@@ -302,14 +417,19 @@ def main():
     phase('build', t0)
 
     t0 = time.time()
-    entry = check_kernel(dev)
+    shapes = check_kernel(dev)
     phase('kernel', t0)
 
     t0 = time.time()
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = defaults
-    entry['launches'] = main_path(card)
+    launches = main_path(card)
     phase('main path', t0)
+
+    t0 = time.time()
+    entry = time_kernel(shapes)
+    entry['launches'] = launches
+    phase('timing', t0)
 
     print(f"[total] {time.time() - t_all:.2f} s", flush=True)
     print(json.dumps({'kernels': [entry]}), flush=True)

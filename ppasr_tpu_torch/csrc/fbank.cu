@@ -3,166 +3,314 @@
 // Replaces ppasr_tpu/ops/fbank_pallas.py::_fbank_kernel (the TPU kernel
 // launched by fbank_frames_pallas). Per frame of 400 int16-scaled samples:
 // DC removal over the 400 samples -> pre-emphasis 0.97 with the first
-// sample replicated -> povey window -> 512-point DFT (bins 0..255; bin 256,
-// the nyquist bin, has zero mel weight) -> power -> mel projection ->
+// sample replicated -> povey window -> 512-point real DFT (bins 0..255; bin
+// 256, the nyquist bin, has zero mel weight) -> power -> mel projection ->
 // log(max(mel, 1.19e-7)). Frame f starts at wav + f * frame_stride, so
 // stride 400 reads a [N, 400] frame matrix and stride 160 reads the frames
 // straight out of a waveform (fusing the framing step).
 //
-// What bounds it: fp32 FMA issue. The direct DFT costs 2 FMAs per sample
-// and bin, ~0.41 MFLOP per frame, against ~1.3 KB of input and output per
-// frame. The design keeps everything after the load in shared memory and
-// registers: one block computes kFramesPerBlock frames, one thread per DFT
-// bin, so each twiddle read from shared memory feeds kFramesPerBlock FMA
-// pairs. The twiddle table holds cos/sin(2*pi*j/512) for j < 512 and is
-// indexed by (k*n) & 511, which gives every angle exactly. No TF32 or bf16:
-// a low-precision DFT loses the pre-emphasis-suppressed low bins to
-// cancellation (ppasr_tpu/ops/fbank.py:239-245).
+// What bounds it: bytes. An FFT-based fbank does about 15k fp32 operations
+// per frame against 1.6 KB read, under the card's 20 operations a byte.
+// The design keeps everything after the load in registers and a small
+// per-warp shared buffer:
 //
-// Later work: a wgmma or 3xTF32 DFT as matrix products, or an in-block
-// radix FFT, to leave the FMA bound.
+// - One warp per frame, kWarps frames per block. The 512 real samples are
+//   packed as 256 complex values z[n] = x[2n] + i x[2n+1] (z[n] = 0 for
+//   n >= 200), and lane t loads z[t + 32 j], j < 7, as one 8-byte load
+//   where the frame pointer is 8-byte aligned (two 4-byte loads where it is
+//   not, as for a view at an odd offset): neighbouring lanes read
+//   neighbouring samples. DC mean and pre-emphasis use warp shuffles.
+// - A 256-point complex FFT, 256 = 8 * 8 * 4, decimated in frequency with
+//   n = t + 32 j and k = q + 8 r + 64 s:
+//     pass 1: lane t, radix 8 over j, times W256^(t q);
+//     exchange through shared rows of 36 floats (lane 4 q + t0 reads
+//     element q of lanes t0 + 4 t1);
+//     pass 2: lane 4 q + t0, radix 8 over t1, times W32^(t0 r);
+//     exchange through shared rows of 33 floats (lane q + 8 m reads element
+//     r = m, m + 4 of lanes 4 q + t0);
+//     pass 3: lane q + 8 m, two radix 4s over t0.
+//   Lane M then holds Z[M + 32 j]. Both row strides make every exchange
+//   free of bank conflicts.
+// - The split step X[k] = (Z[k] + conj Z[256-k]) / 2
+//   - i W512^k (Z[k] - conj Z[256-k]) / 2 takes Z[256-k] from lane 32 - M
+//   by shuffle. The power |X[k]|^2 goes to the warp's shared buffer.
+// - Twiddles have the exact angles cos/sin(pi j / 256) = sincospif(j/256),
+//   computed once per block into a table laid out per lane (row = use,
+//   column = lane), so every read is one conflict-free row.
+// - The mel projection is banded: filter m sums its own contiguous run of
+//   bins (first bin, length, offset into the packed weights; 501 weights in
+//   all at 80 mels), one filter per lane at a time, from the power left in
+//   shared memory. An empty filter writes log(1.19e-7).
+// - fp32 on the CUDA cores only, no TF32 or bf16: a low-precision DFT
+//   loses the pre-emphasis-suppressed low bins to cancellation
+//   (ppasr_tpu/ops/fbank.py:239-245). The butterflies' rounding error grows
+//   with log2 of the length, where the direct sum's grew with the length.
+//
+// Resources: 256 threads a block, 29,184 bytes of static shared memory
+// (twiddles 5,632, mel tables 5,120, exchange buffers 8 x 2,304); 40
+// registers and no spills in both instantiations (ptxas -v, sm_90a).
 //
 // Built with plain nvcc into a shared library with a C interface and loaded
 // with ctypes (ppasr_tpu_torch/ops/fbank_cuda.py).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kWin = 400;            // 25 ms at 16 kHz
-constexpr int kFft = 512;            // next power of two of kWin
-constexpr int kBins = 256;           // DFT bins computed (0..255)
-constexpr int kThreads = 256;        // one thread per bin
-constexpr int kFramesPerBlock = 4;
-constexpr int kWarps = kThreads / 32;
+constexpr int kHalf = kWin / 2;      // packed complex samples
+constexpr int kWarps = 8;            // frames per block, one warp each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxMels = 256;
+constexpr int kMaxWeights = 512;     // a bin lies in at most two triangles
+constexpr int kTw1 = 0;              // twiddle rows: pass 1 (q = 1..7)
+constexpr int kTw2 = 7;              // pass 2 (r = 1..7)
+constexpr int kTw3 = 14;             // split step (j = 0..7)
+constexpr int kTwRows = 22;
+constexpr int kRow1 = 36;            // exchange 1 row stride, 4 mod 32
+constexpr int kRow2 = 33;            // exchange 2 row stride, 1 mod 32
+constexpr int kBuf = 8 * kRow1;      // also holds 8 * kRow2 and 256 powers
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLogFloor = 1.1920928955078125e-07f;
+constexpr float kH = 0.70710678118654752f;   // cos(pi / 4)
 
-static_assert(kThreads == kBins, "one thread per DFT bin");
+__device__ __forceinline__ float2 add(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
 
+__device__ __forceinline__ float2 sub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+
+// a * conj(w): w = (cos, sin) of the table, conj(w) = W512^j
+__device__ __forceinline__ float2 mul_conj(float2 a, float2 w) {
+  return make_float2(fmaf(a.x, w.x, a.y * w.y), fmaf(a.y, w.x, -a.x * w.y));
+}
+
+// forward 4-point DFT in place, natural order
+__device__ __forceinline__ void dft4(float2& b0, float2& b1, float2& b2,
+                                     float2& b3) {
+  const float2 c0 = add(b0, b2), c1 = sub(b0, b2), c2 = add(b1, b3);
+  const float2 c3 = make_float2(b1.y - b3.y, b3.x - b1.x);  // (b1 - b3) * -i
+  b0 = add(c0, c2);
+  b1 = add(c1, c3);
+  b2 = sub(c0, c2);
+  b3 = sub(c1, c3);
+}
+
+// forward 8-point DFT in place, natural order: span-4 butterflies, the
+// differences times W8^n, then a 4-point DFT of each half
+__device__ __forceinline__ void dft8(float2 (&a)[8]) {
+  float2 u[4], v[4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    u[n] = add(a[n], a[n + 4]);
+    v[n] = sub(a[n], a[n + 4]);
+  }
+  v[1] = make_float2(kH * (v[1].x + v[1].y), kH * (v[1].y - v[1].x));
+  v[2] = make_float2(v[2].y, -v[2].x);
+  v[3] = make_float2(kH * (v[3].y - v[3].x), -kH * (v[3].x + v[3].y));
+  dft4(u[0], u[1], u[2], u[3]);
+  dft4(v[0], v[1], v[2], v[3]);
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    a[2 * n] = u[n];
+    a[2 * n + 1] = v[n];
+  }
+}
+
+template <bool kAligned>
 __global__ void __launch_bounds__(kThreads)
 fbank_kernel(const float* __restrict__ wav, long long frame_stride,
              int n_frames, const float* __restrict__ window,
-             const float* __restrict__ mel_t, int n_mels, float preemph,
+             const int* __restrict__ mel_band,
+             const float* __restrict__ mel_w, int n_mels, float preemph,
              int remove_dc, float* __restrict__ out) {
-  __shared__ float cos_t[kFft];
-  __shared__ float sin_t[kFft];
-  __shared__ float raw[kFramesPerBlock][kWin];
-  __shared__ float pre[kFramesPerBlock][kWin];
-  __shared__ float power[kFramesPerBlock][kBins];
-  __shared__ float partial[kFramesPerBlock][kWarps];
-  __shared__ float mean[kFramesPerBlock];
+  __shared__ float2 tw[kTwRows][32];
+  __shared__ int band_first[kMaxMels];
+  __shared__ int band_len[kMaxMels];
+  __shared__ int band_off[kMaxMels];
+  __shared__ float weights[kMaxWeights];
+  __shared__ float buf_re[kWarps][kBuf];
+  __shared__ float buf_im[kWarps][kBuf];
 
   const int tid = threadIdx.x;
-  const long long frame0 = (long long)blockIdx.x * kFramesPerBlock;
-
-  // twiddles: sincospif(j / 256) = sincos(2*pi*j / 512)
-  for (int j = tid; j < kFft; j += kThreads) {
+  for (int e = tid; e < kTwRows * 32; e += kThreads) {
+    const int row = e >> 5, l = e & 31;
+    int j;
+    if (row < kTw2) {
+      j = 2 * l * (row - kTw1 + 1);        // W256^(t q), t = l
+    } else if (row < kTw3) {
+      j = 16 * (l & 3) * (row - kTw2 + 1); // W32^(t0 r), t0 = l & 3
+    } else {
+      j = l + 32 * (row - kTw3);           // W512^k, k = l + 32 j
+    }
     float s, c;
     sincospif((float)j / 256.0f, &s, &c);
-    cos_t[j] = c;
-    sin_t[j] = s;
+    tw[row][l] = make_float2(c, s);
   }
-
-  // load the block's frames; frames past n_frames read zeros
-  for (int i = tid; i < kFramesPerBlock * kWin; i += kThreads) {
-    const int f = i / kWin;
-    const int n = i - f * kWin;
-    const long long gf = frame0 + f;
-    raw[f][n] = gf < n_frames ? wav[gf * frame_stride + n] : 0.0f;
+  for (int m = tid; m < n_mels; m += kThreads) {
+    band_first[m] = mel_band[3 * m];
+    band_len[m] = mel_band[3 * m + 1];
+    band_off[m] = mel_band[3 * m + 2];
   }
+  const int n_weights = min(mel_band[3 * n_mels - 1] +
+                            mel_band[3 * n_mels - 2], kMaxWeights);
+  for (int i = tid; i < n_weights; i += kThreads) weights[i] = mel_w[i];
   __syncthreads();
 
-  // per-frame DC mean: thread partial sums -> warp shuffle -> block
-  float acc[kFramesPerBlock];
-#pragma unroll
-  for (int f = 0; f < kFramesPerBlock; ++f) {
-    acc[f] = 0.0f;
-    for (int n = tid; n < kWin; n += kThreads) acc[f] += raw[f][n];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[f] += __shfl_down_sync(0xffffffffu, acc[f], off);
-  }
-  if ((tid & 31) == 0) {
-#pragma unroll
-    for (int f = 0; f < kFramesPerBlock; ++f) partial[f][tid >> 5] = acc[f];
-  }
-  __syncthreads();
-  if (tid < kFramesPerBlock) {
-    float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += partial[tid][w];
-    mean[tid] = remove_dc ? s / (float)kWin : 0.0f;
-  }
-  __syncthreads();
+  const int warp = tid >> 5, lane = tid & 31;
+  const long long f = (long long)blockIdx.x * kWarps + warp;
+  if (f >= n_frames) return;
+  const float* x = wav + f * frame_stride;
 
-  // DC removal, pre-emphasis (first sample replicated), window
-  for (int i = tid; i < kFramesPerBlock * kWin; i += kThreads) {
-    const int f = i / kWin;
-    const int n = i - f * kWin;
-    const float cur = raw[f][n] - mean[f];
-    const float prev = (n > 0 ? raw[f][n - 1] : raw[f][0]) - mean[f];
-    pre[f][n] = (cur - preemph * prev) * window[n];
-  }
-  __syncthreads();
-
-  // direct DFT of bin k = tid over the kWin nonzero samples, fp32 FMA
-  const int k = tid;
-  float re[kFramesPerBlock], im[kFramesPerBlock];
+  // lane t holds z[t + 32 j] = (x[2n], x[2n+1]), n = t + 32 j < 200
+  float2 a[8];
+  float sum = 0.0f;
 #pragma unroll
-  for (int f = 0; f < kFramesPerBlock; ++f) {
-    re[f] = 0.0f;
-    im[f] = 0.0f;
-  }
-  int idx = 0;
-  for (int n = 0; n < kWin; ++n) {
-    const float c = cos_t[idx];
-    const float s = sin_t[idx];
-#pragma unroll
-    for (int f = 0; f < kFramesPerBlock; ++f) {
-      const float v = pre[f][n];
-      re[f] = fmaf(v, c, re[f]);
-      im[f] = fmaf(v, s, im[f]);
+  for (int j = 0; j < 7; ++j) {
+    const int n = lane + 32 * j;
+    float2 v = make_float2(0.0f, 0.0f);
+    if (n < kHalf) {
+      v = kAligned ? __ldg(reinterpret_cast<const float2*>(x) + n)
+                   : make_float2(__ldg(x + 2 * n), __ldg(x + 2 * n + 1));
     }
-    idx = (idx + k) & (kFft - 1);
+    a[j] = v;
+    sum += v.x + v.y;
   }
+  a[7] = make_float2(0.0f, 0.0f);
 #pragma unroll
-  for (int f = 0; f < kFramesPerBlock; ++f)
-    power[f][k] = fmaf(re[f], re[f], im[f] * im[f]);
-  __syncthreads();
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+  const float mean = remove_dc ? sum / (float)kWin : 0.0f;
 
-  // mel projection: thread m sums mel_t[k][m] * power[k] over the bins
-  if (tid < n_mels) {
-    const int m = tid;
-    float mel[kFramesPerBlock];
+  // DC removal, pre-emphasis (first sample replicated), window. The sample
+  // before x[2n] is x[2n-1], the odd sample of the lane to the left (of
+  // lane 31 at the previous j for lane 0).
+  float left[7];
 #pragma unroll
-    for (int f = 0; f < kFramesPerBlock; ++f) mel[f] = 0.0f;
-    for (int b = 0; b < kBins; ++b) {
-      const float w = mel_t[b * n_mels + m];
+  for (int j = 0; j < 7; ++j)
+    left[j] = __shfl_sync(kFull, a[j].y, (lane + 31) & 31);
 #pragma unroll
-      for (int f = 0; f < kFramesPerBlock; ++f)
-        mel[f] = fmaf(w, power[f][b], mel[f]);
+  for (int j = 0; j < 7; ++j) {
+    const int n = lane + 32 * j;
+    const float prev = lane > 0 ? left[j] : (j > 0 ? left[j - 1] : a[0].x);
+    const float2 w = n < kHalf
+        ? __ldg(reinterpret_cast<const float2*>(window) + n)
+        : make_float2(0.0f, 0.0f);
+    const float e0 = a[j].x - mean, e1 = a[j].y - mean, p = prev - mean;
+    a[j] = make_float2((e0 - preemph * p) * w.x, (e1 - preemph * e0) * w.y);
+  }
+
+  // pass 1: radix 8 over j, twiddle W256^(t q)
+  dft8(a);
+#pragma unroll
+  for (int q = 1; q < 8; ++q) a[q] = mul_conj(a[q], tw[kTw1 + q - 1][lane]);
+  float* re = buf_re[warp];
+  float* im = buf_im[warp];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    re[q * kRow1 + lane] = a[q].x;
+    im[q * kRow1 + lane] = a[q].y;
+  }
+  __syncwarp();
+
+  // pass 2: lane 4 q + t0, radix 8 over t1, twiddle W32^(t0 r)
+  {
+    const int base = (lane >> 2) * kRow1 + (lane & 3);
+#pragma unroll
+    for (int t1 = 0; t1 < 8; ++t1)
+      a[t1] = make_float2(re[base + 4 * t1], im[base + 4 * t1]);
+  }
+  __syncwarp();
+  dft8(a);
+#pragma unroll
+  for (int r = 1; r < 8; ++r) a[r] = mul_conj(a[r], tw[kTw2 + r - 1][lane]);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    re[r * kRow2 + lane] = a[r].x;
+    im[r * kRow2 + lane] = a[r].y;
+  }
+  __syncwarp();
+
+  // pass 3: lane q + 8 m, radix 4 over t0 for r = m and m + 4; then
+  // a[j] = Z[lane + 32 j]
+  {
+    const int q = lane & 7, m = lane >> 3;
+#pragma unroll
+    for (int rhi = 0; rhi < 2; ++rhi) {
+      const int base = (m + 4 * rhi) * kRow2 + 4 * q;
+      float2 c[4];
+#pragma unroll
+      for (int t0 = 0; t0 < 4; ++t0)
+        c[t0] = make_float2(re[base + t0], im[base + t0]);
+      dft4(c[0], c[1], c[2], c[3]);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) a[rhi + 2 * s] = c[s];
     }
+  }
+  __syncwarp();
+
+  // split step and power; Z[256 - k] is element 7 - j of lane 32 - lane
+  // (element (8 - j) mod 8 of lane 0 itself for lane 0)
+  float* power = re;
+  const int partner = (32 - lane) & 31;
 #pragma unroll
-    for (int f = 0; f < kFramesPerBlock; ++f) {
-      const long long gf = frame0 + f;
-      if (gf < n_frames) out[gf * n_mels + m] = logf(fmaxf(mel[f], kLogFloor));
-    }
+  for (int j = 0; j < 8; ++j) {
+    float2 b = make_float2(__shfl_sync(kFull, a[7 - j].x, partner),
+                           __shfl_sync(kFull, a[7 - j].y, partner));
+    if (lane == 0) b = a[(8 - j) & 7];
+    b.y = -b.y;                                    // conj Z[256 - k]
+    const float2 s = add(a[j], b), d = sub(a[j], b);
+    const float2 w = tw[kTw3 + j][lane];
+    const float xr = 0.5f * (s.x + w.x * d.y - w.y * d.x);
+    const float xi = 0.5f * (s.y - w.x * d.x - w.y * d.y);
+    power[lane + 32 * j] = fmaf(xr, xr, xi * xi);
+  }
+  __syncwarp();
+
+  // banded mel projection, one filter per lane at a time
+  float* o = out + f * n_mels;
+  for (int m = lane; m < n_mels; m += 32) {
+    const float* pw = power + band_first[m];
+    const float* wm = weights + band_off[m];
+    const int len = band_len[m];
+    float acc = 0.0f;
+    for (int i = 0; i < len; ++i) acc = fmaf(wm[i], pw[i], acc);
+    o[m] = logf(fmaxf(acc, kLogFloor));
   }
 }
 
 }  // namespace
 
 // wav: first sample of frame 0; frame f reads wav[f*frame_stride, +400).
-// window: [400] povey window. mel_t: [256, n_mels] mel weights, transposed.
-// out: [n_frames, n_mels]. Returns cudaGetLastError() after the launch.
+// window: [400] povey window, 8-byte aligned. mel_band: [n_mels, 3] int32
+// (first bin, length, offset into mel_w) of each filter's nonzero run;
+// mel_w: the packed weights, at most 512. out: [n_frames, n_mels].
+// Returns cudaGetLastError() after the launch.
 extern "C" int fbank_launch(const float* wav, long long frame_stride,
                             int n_frames, const float* window,
-                            const float* mel_t, int n_mels, float preemph,
-                            int remove_dc, float* out, void* stream) {
+                            const int* mel_band, const float* mel_w,
+                            int n_mels, float preemph, int remove_dc,
+                            float* out, void* stream) {
   if (n_frames <= 0) return 0;
-  if (n_mels <= 0 || n_mels > kThreads) return (int)cudaErrorInvalidValue;
-  const int blocks = (n_frames + kFramesPerBlock - 1) / kFramesPerBlock;
-  fbank_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      wav, frame_stride, n_frames, window, mel_t, n_mels, preemph, remove_dc,
-      out);
+  if (n_mels <= 0 || n_mels > kMaxMels ||
+      reinterpret_cast<std::uintptr_t>(window) % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks =
+      (unsigned)(((long long)n_frames + kWarps - 1) / kWarps);
+  const bool aligned = reinterpret_cast<std::uintptr_t>(wav) % 8 == 0 &&
+                       frame_stride % 2 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (aligned) {
+    fbank_kernel<true><<<blocks, kThreads, 0, s>>>(
+        wav, frame_stride, n_frames, window, mel_band, mel_w, n_mels,
+        preemph, remove_dc, out);
+  } else {
+    fbank_kernel<false><<<blocks, kThreads, 0, s>>>(
+        wav, frame_stride, n_frames, window, mel_band, mel_w, n_mels,
+        preemph, remove_dc, out);
+  }
   return (int)cudaGetLastError();
 }

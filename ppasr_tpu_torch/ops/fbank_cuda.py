@@ -1,10 +1,15 @@
 """Kernel B1, the fused fbank: build, bind and launch ``csrc/fbank.cu``.
 
 Replaces ppasr_tpu/ops/fbank_pallas.py ``_fbank_kernel`` (launched by
-``fbank_frames_pallas``, :90-131). The CUDA source is compiled at first use
-with plain ``nvcc`` for ``sm_90a`` into a shared library with a C interface
-under ``build/torch_kernels/`` (listed in ``.gitignore``), named by a hash of
-the source and flags, and loaded with ``ctypes``.
+``fbank_frames_pallas``, :90-131). The kernel computes each frame's 512-point
+real DFT as a packed 256-point complex FFT (radix 8, 8, 4) with a split step,
+one warp per frame and eight frames a block, in float32 on the CUDA cores;
+it projects the power onto the mel filters over each filter's own band of
+bins, from the compact tables that ``_constants`` builds (``mel_bands``).
+The CUDA source is compiled at first use with plain ``nvcc`` for ``sm_90a``
+into a shared library with a C interface under ``build/torch_kernels/``
+(listed in ``.gitignore``), named by a hash of the source and flags, and
+loaded with ``ctypes``.
 
 The wrappers take a CPU tensor to the plain version (``ops/fbank.py``) and a
 CUDA tensor to the kernel; on a CUDA tensor they launch the kernel or raise.
@@ -27,7 +32,8 @@ WINDOW_SIZE = 400    # the kernel's frame length: 25 ms at 16 kHz
 WINDOW_SHIFT = 160   # 10 ms at 16 kHz
 N_FFT = 512
 N_BINS = 256         # bins the kernel computes; bin 256 has zero mel weight
-MAX_MELS = 256       # one thread per mel bin in the projection
+MAX_MELS = 256       # the kernel's band tables hold at most 256 filters
+MAX_WEIGHTS = 512    # packed mel weights the kernel holds in shared memory
 
 SOURCE = Path(__file__).resolve().parent.parent / 'csrc' / 'fbank.cu'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
@@ -83,24 +89,48 @@ def _library():
         lib = ctypes.CDLL(str(build()))
         lib.fbank_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         lib.fbank_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def mel_bands(mel: np.ndarray):
+    """Compact tables of mel weights ``[M, bins]`` whose every row is zero
+    outside one contiguous run of bins: ``band`` int32 [M, 3] holds each
+    filter's first bin, length (0 for an empty filter) and offset into
+    ``weights``, the rows' runs packed in order."""
+    band = np.zeros((mel.shape[0], 3), np.int32)
+    runs = []
+    off = 0
+    for m, row in enumerate(mel):
+        nz = np.flatnonzero(row)
+        if nz.size:
+            first, length = int(nz[0]), int(nz[-1]) + 1 - int(nz[0])
+            runs.append(row[first:first + length])
+            band[m] = first, length, off
+            off += length
+        else:
+            band[m] = 0, 0, off
+    return band, np.concatenate(runs or [np.zeros(0, np.float32)])
+
+
 def _constants(device, num_mel_bins, sample_rate, low_freq, high_freq):
-    """Povey window [400] and transposed mel weights [256, M] on ``device``."""
+    """Povey window [400], mel band table [M, 3] int32 and packed mel
+    weights on ``device``."""
     key = (str(device), num_mel_bins, sample_rate, low_freq, high_freq)
     if key not in _consts:
         mel = get_mel_banks(num_mel_bins, N_FFT, float(sample_rate), low_freq,
                             high_freq)
         if np.any(mel[:, N_BINS:]):
             raise ValueError("mel weights above bin 255 are not zero")
-        mel_t = np.ascontiguousarray(mel[:, :N_BINS].T)
-        _consts[key] = (torch.from_numpy(povey_window(WINDOW_SIZE)).to(device),
-                        torch.from_numpy(mel_t).to(device))
+        band, weights = mel_bands(mel[:, :N_BINS])
+        if weights.size > MAX_WEIGHTS:
+            raise ValueError(f"{weights.size} mel weights, the kernel holds "
+                             f"{MAX_WEIGHTS}")
+        _consts[key] = tuple(torch.from_numpy(a).to(device) for a in (
+            povey_window(WINDOW_SIZE), band, weights))
     return _consts[key]
 
 
@@ -133,15 +163,15 @@ def fbank_strided(wav: torch.Tensor, n_frames: int, frame_stride: int,
                       device=wav.device)
     if n_frames == 0:
         return out
-    window, mel_t = _constants(wav.device, num_mel_bins, sample_rate,
-                               low_freq, high_freq)
+    window, band, weights = _constants(wav.device, num_mel_bins,
+                                       sample_rate, low_freq, high_freq)
     lib = _library()
     with torch.cuda.device(wav.device):
         stream = torch.cuda.current_stream(wav.device).cuda_stream
         rc = lib.fbank_launch(wav.data_ptr(), frame_stride, n_frames,
-                              window.data_ptr(), mel_t.data_ptr(),
-                              num_mel_bins, preemphasis, int(remove_dc_offset),
-                              out.data_ptr(), stream)
+                              window.data_ptr(), band.data_ptr(),
+                              weights.data_ptr(), num_mel_bins, preemphasis,
+                              int(remove_dc_offset), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fbank kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -33,7 +33,7 @@ def _close(a, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('n', [1, 67, 997])
+@pytest.mark.parametrize('n', [1, 5, 67, 997])   # eight frames a block
 def test_kernel_matches_plain_version_on_card(n):
     dev = _card()
     samples = speechlike((n - 1) * 160 + 400, seed=n)
@@ -49,6 +49,54 @@ def test_kernel_matches_plain_version_on_card(n):
     _close(got, plain)
     _close(frames, plain)
     _close(got, F.fbank_numpy(samples))
+
+
+@pytest.mark.gpu
+def test_kernel_stride_400_batch_on_card():
+    """bench.py's batch: 16 × 10 s framed into [15,968, 400]."""
+    dev = _card()
+    batch = [speechlike(160000, seed=s) for s in range(16)]
+    frames = np.concatenate([F.frame_torch(torch.from_numpy(w)[None], 400,
+                                           160, 998)[0].numpy()
+                             for w in batch])
+    before = fbank_cuda.launches
+    got = fbank_cuda.fbank_frames(torch.from_numpy(frames).to(dev))
+    torch.cuda.synchronize()
+    assert fbank_cuda.launches == before + 1
+    assert got.shape == (15968, 80)
+    _close(got, fbank_cuda.fbank_frames(torch.from_numpy(frames)))
+    _close(got, np.concatenate([F.fbank_numpy(w) for w in batch]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n', [1, 67, 997])
+def test_kernel_reads_base_pointer_at_odd_offset(n):
+    """A view one sample into its storage is 4-byte aligned only."""
+    dev = _card()
+    samples = speechlike((n - 1) * 160 + 401, seed=n + 1)
+    wav = torch.from_numpy(samples).to(dev)[1:]
+    assert wav.data_ptr() % 8 == 4 and wav.is_contiguous()
+    before = fbank_cuda.launches
+    got = fbank_cuda.fbank_window(wav, n)
+    torch.cuda.synchronize()
+    assert fbank_cuda.launches == before + 1
+    _close(got, fbank_cuda.fbank_window(wav.cpu(), n))
+    _close(got, F.fbank_numpy(samples[1:]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('num_mel_bins', [40, 80, 256])
+def test_kernel_num_mel_bins_on_card(num_mel_bins):
+    dev = _card()
+    samples = speechlike(66 * 160 + 400, seed=num_mel_bins)
+    wav = torch.from_numpy(samples).to(dev)
+    before = fbank_cuda.launches
+    got = fbank_cuda.fbank_window(wav, 67, num_mel_bins)
+    torch.cuda.synchronize()
+    assert fbank_cuda.launches == before + 1
+    assert got.shape == (67, num_mel_bins)
+    _close(got, fbank_cuda.fbank_window(wav.cpu(), 67, num_mel_bins))
+    _close(got, F.fbank_numpy(samples, num_mel_bins=num_mel_bins))
 
 
 @pytest.mark.gpu
