@@ -29,8 +29,8 @@ is not 0:
    ``torch.fft.rfft`` alone on the same frames, and the kernel again, each
    per call (``call_ms``, CUDA events around back-to-back calls, host work
    included) and the kernel and ``rfft`` also on the device alone
-   (``device_ms``, from ``torch.profiler``; a CUDA graph of the same calls
-   if the profiler records no device time); and the bound.
+   (``device_ms``, from ``torch.profiler`` recording CUDA activity only);
+   and the bound. The kernel table's ``ms`` is ``call_ms`` at the window.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the one before it the kernel table as JSON; the last line is
@@ -61,6 +61,7 @@ BUILD = os.path.join(ROOT, 'build')
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 MEAN_TOL, MAX_TOL = 1e-3, 0.05   # log-mel, tests/test_fbank_pallas.py:28-29
+RFFT_LAUNCHES = 3   # kernels that one torch.fft.rfft(frames, n=512) launches
 
 
 def phase(name, t0):
@@ -90,68 +91,58 @@ def call_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, match=None):
-    """(device milliseconds per call of ``fn()``, method, launches seen).
-    First ``torch.profiler`` over ``iters`` calls: for each kernel whose name
-    contains ``match`` (each kernel or copy when ``match`` is None), the
-    device time that ``key_averages()`` gives for its name divided by its
-    launches, times its launches per call. The profiler may miss a few
-    launches of a run, so the mean is taken over those it recorded. If
-    it records no device time, ``iters`` calls captured into one CUDA graph,
-    whose replay is timed with CUDA events."""
+def device_ms(fn, iters, launches_per_call, match=None, tries=3):
+    """(device milliseconds per call of ``fn()``, launches recorded).
+    ``torch.profiler``, recording CUDA activity only, over ``iters`` calls:
+    the device time that ``key_averages()`` gives for the kernels whose name
+    contains ``match`` (every kernel and copy when ``match`` is None), over
+    the launches it recorded, times ``launches_per_call``. A session that
+    records fewer than half the ``iters * launches_per_call`` launches, or
+    more than them, is printed and run again, up to ``tries`` sessions; then
+    this raises. It raises too if the profiler records no device time."""
+    want = iters * launches_per_call
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per_call_us, seen = 0.0, 0
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA or not evt.count:
-            continue
-        if match is not None and match not in evt.key:
-            continue
-        per_call_us += (evt.self_device_time_total / evt.count
-                        * max(1, round(evt.count / iters)))
-        seen += evt.count
-    if per_call_us > 0:
-        return per_call_us / 1e3, 'profiler', seen
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters, 'cuda graph', None
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us, seen = 0.0, 0
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if match is not None and match not in evt.key:
+                continue
+            total_us += evt.self_device_time_total
+            seen += evt.count
+        if total_us <= 0:
+            raise RuntimeError("torch.profiler recorded no device time")
+        if want / 2 <= seen <= want:
+            return total_us / seen * launches_per_call / 1e3, seen
+        print(f"  profiler session recorded {seen} of {want} launches; "
+              f"run again", flush=True)
+    raise RuntimeError(f"torch.profiler recorded {seen} of {want} launches "
+                       f"in each of {tries} sessions")
 
 
 def bound_ms(n_frames, input_samples, num_mel_bins=80):
     """Least time for fbank on this card class: the larger of the bytes the
-    kernel must move (samples, window and mel weights in, log-mel out) over
-    the memory rate, and the fp32 operations of an FFT-based fbank over the
-    fp32 peak. A real n-point FFT counts 2.5·n·log2(n) operations."""
+    function must move (samples, window, each filter's band of weights and
+    its int32 band entry in, log-mel out) over the memory rate, and the fp32
+    operations of an FFT-based fbank over the fp32 peak. A real n-point FFT
+    counts 2.5·n·log2(n) operations."""
     mel = F.get_mel_banks(num_mel_bins, 512, 16000.0)
-    nnz = int(np.count_nonzero(mel))
+    band, weights = fbank_cuda.mel_bands(mel[:, :fbank_cuda.N_BINS])
+    nnz = weights.size
     flops_per_frame = (4 * 400              # DC mean, pre-emphasis, window
                        + 2.5 * 512 * 9      # real 512-point FFT
                        + 3 * 257            # power
                        + 2 * nnz            # mel projection
                        + 2 * num_mel_bins)  # floor and log
-    nbytes = 4 * (input_samples + 400 + 256 * num_mel_bins
-                  + n_frames * num_mel_bins)
+    nbytes = (4 * (input_samples + 400 + nnz + n_frames * num_mel_bins)
+              + band.nbytes)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = n_frames * flops_per_frame / PEAK_FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ('operations' if t_ops >= t_bytes
@@ -183,22 +174,24 @@ def time_shape(name, kernel_fn, frames, iters, reps=3):
     """Three rounds, each timing in turn the kernel, the plain version,
     ``torch.fft.rfft`` alone on the same frames, and the kernel again: the
     time per call (CUDA events) of each, and the device time of the kernel
-    and of ``rfft`` with the launches the profiler recorded of ``iters``
-    calls. Returns every reading and their medians."""
+    (one launch a call) and of ``rfft`` (``RFFT_LAUNCHES`` a call) with the
+    launches the profiler recorded of ``iters`` calls. Returns every reading
+    and their medians."""
     plain_fn = lambda: F.fbank_frames_torch(frames)  # noqa: E731
     rfft_fn = lambda: torch.fft.rfft(frames, n=512)  # noqa: E731
     turns = []
     for rep in range(reps):
         row = {}
-        for label, fn, match in (('kernel', kernel_fn, 'fbank_kernel'),
-                                 ('plain', plain_fn, None),
-                                 ('rfft', rfft_fn, None),
-                                 ('kernel_again', kernel_fn, 'fbank_kernel')):
+        for label, fn, per_call, match in (
+                ('kernel', kernel_fn, 1, 'fbank_kernel'),
+                ('plain', plain_fn, None, None),
+                ('rfft', rfft_fn, RFFT_LAUNCHES, None),
+                ('kernel_again', kernel_fn, 1, 'fbank_kernel')):
             row[f'{label}_call_ms'] = call_ms(fn, iters)
-            if label != 'plain':
-                (row[f'{label}_device_ms'], row['device_method'],
-                 row[f'{label}_launches_profiled']) = device_ms(fn, iters,
-                                                               match)
+            if per_call:
+                (row[f'{label}_device_ms'],
+                 row[f'{label}_launches_profiled']) = device_ms(
+                     fn, iters, per_call, match)
         print(f"  {name} round {rep + 1}: " + ", ".join(
             f"{k} {v:.6f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in row.items()), flush=True)
@@ -211,7 +204,6 @@ def time_shape(name, kernel_fn, frames, iters, reps=3):
             'plain_ms': med('plain_call_ms'),
             'rfft_only_ms': med('rfft_call_ms'),
             'rfft_device_ms': med('rfft_device_ms'),
-            'device_method': turns[-1]['device_method'],
             'turns': turns}
 
 
@@ -277,8 +269,8 @@ def time_kernel(shapes):
         row.update(bound_ms=b_ms, bound_by=b_by, **case['errors'],
                    **time_shape(case['shape'], case['kernel'], case['frames'],
                                 case['iters']))
-        print(f"  {row['shape']}: kernel device {row['device_ms']:.6f} ms "
-              f"({row['device_method']}), per call {row['call_ms']:.6f} ms; "
+        print(f"  {row['shape']}: kernel device {row['device_ms']:.6f} ms, "
+              f"per call {row['call_ms']:.6f} ms; "
               f"plain {row['plain_ms']:.6f} ms; rfft alone "
               f"{row['rfft_only_ms']:.6f} ms per call, "
               f"{row['rfft_device_ms']:.6f} ms on the device; bound "
@@ -292,11 +284,10 @@ def time_kernel(shapes):
         'tpu_function': '_fbank_kernel',
         'launches': None,
         'max_abs_err': max(r['max_abs_err'] for r in rows),
-        'ms': main['device_ms'], 'device_ms': main['device_ms'],
-        'call_ms': main['call_ms'], 'plain_ms': main['plain_ms'],
+        'ms': main['call_ms'], 'call_ms': main['call_ms'],
+        'device_ms': main['device_ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
         'library_ms': None, 'rfft_only_ms': main['rfft_only_ms'],
-        'device_method': main['device_method'],
         'shape': 'one streaming window: 67 frames at stride 160',
         'shapes': rows,
     }
