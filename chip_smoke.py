@@ -14,8 +14,10 @@ is not 0:
    mel projection) against its plain PyTorch version on the card and the
    host ``fbank_numpy`` at the main path's shape (one 67-frame streaming
    window, stride 160), at an odd frame count (997 frames, stride 160, also
-   from a base pointer at an odd offset) and at a 16 × 10 s batch (15,968
-   frames, stride 400);
+   from a base pointer at an odd offset), at a 16 × 10 s batch (15,968
+   frames, stride 400) and at the batch path's launch (``fbank_batch`` over
+   16 rows of 80,000 samples: 7,998 frames at stride 160 over the flat
+   buffer);
 4. main path: the committed flagship streaming Conformer (256-dim, 12
    blocks) through ``PPASRPredictor(use_gpu=True, use_device_frontend=True)``
    on the three utterances of tests/fixtures/torch_smoke_utts.npz, offline
@@ -23,14 +25,27 @@ is not 0:
    predictor turns TF32 off for its own calls); transcripts must equal the
    JAX package's recorded in the fixture, and the fbank kernel must have
    been launched once per streamed window;
-5. timing, after the main path, whose real-time factors are thus read
+5. batch: ``predict_batch`` over five utterances (the three and two cuts of
+   them) on the device frontend and on the host frontend; transcripts must
+   equal the fixture's JAX ``predict_batch`` texts, with exactly one fbank
+   launch for the device-frontend batch; then ``fbank_batch`` against
+   ``fbank_batch_torch`` on that batch on the card;
+6. engine: ``StreamingBatchEngine(max_streams=4)`` over the three
+   utterances fed as PCM bytes in 0.16 s pieces, interleaved and staggered;
+   transcripts must equal the fixture's JAX engine texts;
+7. stream eval: ``streaming_greedy_batch`` over the three utterances' host
+   features; transcripts must equal the fixture's JAX texts; its CER
+   (``utils/metrics.cer``) against the references;
+8. timing, after the paths, whose real-time factors are thus read
    before the process first runs the profiler: at each shape of phase 3,
    three rounds time in turn the kernel, the plain version,
    ``torch.fft.rfft`` alone on the same frames, and the kernel again, each
    per call (``call_ms``, CUDA events around back-to-back calls, host work
    included) and the kernel and ``rfft`` also on the device alone
    (``device_ms``, from ``torch.profiler`` recording CUDA activity only);
-   and the bound. The kernel table's ``ms`` is ``call_ms`` at the window.
+   and the bound. The kernel table's ``ms`` is ``call_ms`` at the window,
+   its ``launches`` the launches of phases 4 and 5, and its
+   ``max_abs_err`` the largest of phases 3 and 5.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the one before it the kernel table as JSON; the last line is
@@ -47,9 +62,13 @@ import time
 import numpy as np
 import torch
 
+from ppasr_tpu_torch.decoders.greedy import _collapse
+from ppasr_tpu_torch.models.streaming_eval import streaming_greedy_batch
 from ppasr_tpu_torch.ops import fbank as F
 from ppasr_tpu_torch.ops import fbank_cuda
 from ppasr_tpu_torch.predict import PPASRPredictor, ieee_float32
+from ppasr_tpu_torch.serving import StreamingBatchEngine
+from ppasr_tpu_torch.utils.metrics import cer, edit_distance
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, 'tests'))
@@ -170,14 +189,13 @@ def compare(name, got, plain, host):
     return row
 
 
-def time_shape(name, kernel_fn, frames, iters, reps=3):
+def time_shape(name, kernel_fn, plain_fn, frames, iters, reps=3):
     """Three rounds, each timing in turn the kernel, the plain version,
     ``torch.fft.rfft`` alone on the same frames, and the kernel again: the
     time per call (CUDA events) of each, and the device time of the kernel
     (one launch a call) and of ``rfft`` (``RFFT_LAUNCHES`` a call) with the
     launches the profiler recorded of ``iters`` calls. Returns every reading
     and their medians."""
-    plain_fn = lambda: F.fbank_frames_torch(frames)  # noqa: E731
     rfft_fn = lambda: torch.fft.rfft(frames, n=512)  # noqa: E731
     turns = []
     for rep in range(reps):
@@ -221,6 +239,7 @@ def check_kernel(dev):
     shapes.append(dict(shape='window N=67 stride 160', n_frames=67,
                        frame_stride=160, samples=win.size, frames=frames,
                        kernel=lambda w=wav: fbank_cuda.fbank_window(w, 67),
+                       plain=lambda f=frames: F.fbank_frames_torch(f),
                        host=F.fbank_numpy(win), iters=200))
 
     # odd frame count, stride 160
@@ -230,6 +249,7 @@ def check_kernel(dev):
     shapes.append(dict(shape='odd N=997 stride 160', n_frames=997,
                        frame_stride=160, samples=odd.size, frames=frames,
                        kernel=lambda w=wav: fbank_cuda.fbank_window(w, 997),
+                       plain=lambda f=frames: F.fbank_frames_torch(f),
                        host=F.fbank_numpy(odd), iters=200))
 
     # bench.py's batch: 16 × 10 s, frames [15,968, 400], stride 400
@@ -240,13 +260,27 @@ def check_kernel(dev):
                        n_frames=frames.shape[0], frame_stride=400,
                        samples=frames.numel(), frames=frames,
                        kernel=lambda f=frames: fbank_cuda.fbank_frames(f),
+                       plain=lambda f=frames: F.fbank_frames_torch(f),
                        host=np.concatenate([F.fbank_numpy(w) for w in batch]),
+                       iters=50))
+
+    # predict_batch's device frontend: one stride-160 launch over 16 rows of
+    # 80,000 samples, 7,998 frames of the flat buffer, 16 × 498 of them kept
+    rows = np.stack([fx.speechlike(80000, seed=100 + s) for s in range(16)])
+    wavs = torch.from_numpy(rows).to(dev)
+    lens = torch.full((16,), 80000, dtype=torch.int32, device=dev)
+    frames = F.frame_torch(wavs.view(1, -1), 400, 160, 7998)[0].contiguous()
+    shapes.append(dict(shape='batch path N=7998 stride 160',
+                       n_frames=7998, frame_stride=160, samples=rows.size,
+                       frames=frames,
+                       kernel=lambda: fbank_cuda.fbank_batch(wavs, lens)[0],
+                       plain=lambda: F.fbank_batch_torch(wavs, lens)[0],
+                       host=np.stack([F.fbank_numpy(w) for w in rows]),
                        iters=50))
 
     for case in shapes:
         case['errors'] = compare(case['shape'], case['kernel'](),
-                                 F.fbank_frames_torch(case['frames']),
-                                 case.pop('host'))
+                                 case['plain'](), case.pop('host'))
 
     # the 997 frames again from a view one sample into its storage, which
     # the kernel reads with 4-byte loads
@@ -267,8 +301,8 @@ def time_kernel(shapes):
         b_ms, b_by = bound_ms(case['n_frames'], case['samples'])
         row = {k: case[k] for k in ('shape', 'n_frames', 'frame_stride')}
         row.update(bound_ms=b_ms, bound_by=b_by, **case['errors'],
-                   **time_shape(case['shape'], case['kernel'], case['frames'],
-                                case['iters']))
+                   **time_shape(case['shape'], case['kernel'], case['plain'],
+                                case['frames'], case['iters']))
         print(f"  {row['shape']}: kernel device {row['device_ms']:.6f} ms, "
               f"per call {row['call_ms']:.6f} ms; "
               f"plain {row['plain_ms']:.6f} ms; rfft alone "
@@ -291,16 +325,6 @@ def time_kernel(shapes):
         'shape': 'one streaming window: 67 frames at stride 160',
         'shapes': rows,
     }
-
-
-def edit_distance(a, b):
-    row = list(range(len(b) + 1))
-    for i, ca in enumerate(a, 1):
-        prev, row[0] = row[0], i
-        for j, cb in enumerate(b, 1):
-            prev, row[j] = row[j], min(row[j] + 1, row[j - 1] + 1,
-                                       prev + (ca != cb))
-    return row[-1]
 
 
 def tf32_flags():
@@ -345,10 +369,10 @@ def main_path(card):
     audio_s = sum(len(p) for p in pcms) / 16000.0
     texts = [str(t) for t in data['texts']]
     errors = sum(edit_distance(h, r) for h, r in zip(stream, texts))
-    cer = errors / sum(len(r) for r in texts)
+    stream_cer = errors / sum(len(r) for r in texts)
     for t, o, s in zip(texts, offline, stream):
         print(f"  ref {t} | offline {o} | stream {s}", flush=True)
-    print(f"  on {card}: streaming CER {cer:.4f} over {len(texts)} "
+    print(f"  on {card}: streaming CER {stream_cer:.4f} over {len(texts)} "
           f"utterances, {audio_s:.3f} s of audio; real-time factor offline "
           f"{t_off / audio_s:.4f}, streaming {t_stream / audio_s:.4f}; "
           f"fbank launches {launches} for {windows} windows", flush=True)
@@ -377,7 +401,113 @@ def main_path(card):
             and torch.isfinite(probs).all()
             and (probs[0, :n].sum(-1) - 1).abs().max().item() < 1e-4):
         raise AssertionError(f"bad posteriors: shape {tuple(probs.shape)}")
-    return launches
+    return launches, pred, artifact, data, pcms
+
+
+def expect(name, got, data, key):
+    """Raise unless the texts ``got`` equal the fixture's JAX texts."""
+    want = [str(t) for t in data[key]]
+    if got != want:
+        raise AssertionError(f"{name} transcripts differ from JAX's "
+                             f"({key}): {got} != {want}")
+
+
+def batch_path(card, pred, artifact, data, pcms):
+    """Phase 5: ``predict_batch`` on both frontends over five utterances;
+    one fbank launch for the device-frontend batch; then the batch launch
+    against its plain version on the same CUDA batch. Returns the
+    launches of the device-frontend call and that check's max |Δ|."""
+    utts = fx.batch_utts(pcms)
+    audio_s = sum(len(u) for u in utts) / 16000.0
+    host = PPASRPredictor(model_path=artifact, use_gpu=True)
+    wav_batch, wlens = pred._waveform_batch(utts)
+
+    fbank_cuda.launches = 0
+    t0 = time.time()
+    device_out = pred.predict_batch(utts)
+    torch.cuda.synchronize()
+    t_device = time.time() - t0
+    launches = fbank_cuda.launches
+    t0 = time.time()
+    host_out = host.predict_batch(utts)
+    torch.cuda.synchronize()
+    t_host = time.time() - t0
+    host_launches = fbank_cuda.launches - launches
+
+    for d, h in zip(device_out, host_out):
+        print(f"  device frontend {d['text']} ({d['score']:.4f}) | host "
+              f"frontend {h['text']} ({h['score']:.4f})", flush=True)
+    print(f"  on {card}: {len(utts)} utterances, {audio_s:.3f} s of audio "
+          f"in a [rows, samples] = {list(wav_batch.shape)} batch; wall "
+          f"{t_device:.4f} s on the device frontend, {t_host:.4f} s on the "
+          f"host frontend; fbank launches {launches} and {host_launches}",
+          flush=True)
+    expect('device-frontend predict_batch', [r['text'] for r in device_out],
+           data, 'jax_batch_device')
+    expect('host-frontend predict_batch', [r['text'] for r in host_out],
+           data, 'jax_batch')
+    if launches != 1 or host_launches != 0:
+        raise AssertionError(f"predict_batch launched the fbank kernel "
+                             f"{launches} times on the device frontend and "
+                             f"{host_launches} on the host frontend, not 1 "
+                             f"and 0")
+    if not all(np.isfinite(r['score']) for r in device_out + host_out):
+        raise AssertionError("predict_batch gave a score that is not finite")
+
+    wavs = torch.from_numpy(wav_batch).to(pred.device)
+    lens = torch.from_numpy(wlens).to(pred.device)
+    got, got_lens = fbank_cuda.fbank_batch(wavs, lens)
+    want, want_lens = F.fbank_batch_torch(wavs, lens)
+    d = (got - want).abs()
+    print(f"  fbank_batch on the card, {tuple(wavs.shape)} → "
+          f"{tuple(got.shape)}: vs fbank_batch_torch max "
+          f"{d.max().item():.3g} mean {d.mean().item():.3g}; frame counts "
+          f"{got_lens.tolist()}", flush=True)
+    if not (torch.equal(got_lens, want_lens) and torch.isfinite(got).all()
+            and d.max().item() < MAX_TOL and d.mean().item() < MEAN_TOL):
+        raise AssertionError(f"fbank_batch disagrees with fbank_batch_torch:"
+                             f" frame counts {got_lens.tolist()} vs "
+                             f"{want_lens.tolist()}, max "
+                             f"{d.max().item():.3g}")
+    return launches, d.max().item()
+
+
+def engine_path(card, pred, data, pcms):
+    """Phase 6: the multi-stream engine, three staggered streams."""
+    engine = StreamingBatchEngine(pred, max_streams=4)
+    t0 = time.time()
+    texts = fx.engine_texts(engine, pcms, int(data['piece']))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    audio_s = sum(len(p) for p in pcms) / 16000.0
+    print(f"  engine texts {texts}", flush=True)
+    if engine.ticks == 0:
+        raise AssertionError("the engine ran no tick")
+    per_tick = wall / engine.ticks * 1e3
+    step = engine.tick_seconds / engine.ticks * 1e3
+    print(f"  on {card}: {audio_s:.3f} s of audio in 3 staggered streams, "
+          f"{engine.ticks} ticks; wall {wall:.4f} s, {per_tick:.3f} ms per "
+          f"tick with the host featurizing, {step:.3f} ms per tick in the "
+          f"chunk step and its round trip", flush=True)
+    expect('engine', texts, data, 'jax_engine')
+
+
+def stream_eval_path(card, pred, data, pcms):
+    """Phase 7: the batched streaming eval over the host features."""
+    t0 = time.time()
+    x, lens = fx.host_features(pred, pcms)
+    ids, max_probs, out_lens = streaming_greedy_batch(pred.model, x, lens)
+    wall = time.time() - t0
+    texts = fx.rows_to_texts(_collapse, ids, max_probs, out_lens,
+                             pred.vocab_list)
+    refs = [str(t) for t in data['texts']]
+    cers = [cer(h, r) for h, r in zip(texts, refs)]
+    print(f"  stream eval texts {texts}; out_lens {out_lens.tolist()}",
+          flush=True)
+    print(f"  on {card}: {x.shape[0]} streams of up to {x.shape[1]} frames "
+          f"in {wall:.4f} s; CER {statistics.mean(cers):.4f} (mean of "
+          f"{[round(c, 4) for c in cers]})", flush=True)
+    expect('stream eval', texts, data, 'jax_stream_eval')
 
 
 def main():
@@ -414,12 +544,26 @@ def main():
     t0 = time.time()
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = defaults
-    launches = main_path(card)
+    launches, pred, artifact, data, pcms = main_path(card)
     phase('main path', t0)
+
+    t0 = time.time()
+    batch_launches, batch_err = batch_path(card, pred, artifact, data, pcms)
+    launches += batch_launches
+    phase('batch', t0)
+
+    t0 = time.time()
+    engine_path(card, pred, data, pcms)
+    phase('engine', t0)
+
+    t0 = time.time()
+    stream_eval_path(card, pred, data, pcms)
+    phase('stream eval', t0)
 
     t0 = time.time()
     entry = time_kernel(shapes)
     entry['launches'] = launches
+    entry['max_abs_err'] = max(entry['max_abs_err'], batch_err)
     phase('timing', t0)
 
     print(f"[total] {time.time() - t_all:.2f} s", flush=True)

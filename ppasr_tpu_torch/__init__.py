@@ -6,10 +6,14 @@ anything of ``ppasr_tpu`` (whose ``__init__`` imports JAX). Code it shares
 with the JAX package is copied here. Entry points run on the card
 (``cuda:0``) unless the caller asks for the CPU.
 
-Ported so far: the streaming Conformer predictor's main path (config and
-checkpoint readers, host and device fbank with the hand-written CUDA kernel
-in ``csrc/fbank.cu``, the Conformer encoder with CTC head, greedy
-decoding). See ROADMAP.md for what is still to come.
+Ported so far: the streaming Conformer predictor (config and checkpoint
+readers, host and device fbank with the hand-written CUDA kernel in
+``csrc/fbank.cu``, the Conformer encoder with CTC head, greedy decoding),
+offline, batched (``predict_batch``) and streaming; the multi-stream
+engine (``serving``), the batched streaming eval
+(``models/streaming_eval``), CER and WER (``utils/metrics``) and the CLI
+``python -m ppasr_tpu_torch.infer_path``. See ROADMAP.md for what is still
+to come.
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,16 @@
 """In-memory mono float32 audio segment.
 
 Copy of what the predictor uses of ppasr_tpu/data/audio.py:23-395:
-``from_ndarray``, ``from_pcm_bytes``, WAV ``from_file`` through the standard
-``wave`` module, ``normalize``, ``resample`` (scipy polyphase), ``to``.
-Other containers (mp3, flac, float WAV) raise; the JAX package reaches them
-through scipy and ffmpeg.
+``from_ndarray``, ``from_pcm_bytes``, ``from_file``, ``normalize``,
+``resample`` (scipy polyphase), ``to``. ``from_file`` reads integer-PCM WAV
+through the standard ``wave`` module, falls back to ``scipy.io.wavfile``
+for the WAV formats ``wave`` rejects (float WAV), and then to an ``ffmpeg``
+subprocess for other containers (mp3, flac, opus) where ffmpeg is installed
+(``_read_wav`` and ``_read_via_ffmpeg``, :347-395 there).
 """
+import shutil
+import struct
+import subprocess
 import wave
 
 import numpy as np
@@ -25,12 +30,9 @@ class AudioSegment:
 
     @classmethod
     def from_file(cls, file) -> "AudioSegment":
-        """Load an integer-PCM WAV file (path or file object)."""
-        with wave.open(file, "rb") as wf:
-            sr = wf.getframerate()
-            data = wf.readframes(wf.getnframes())
-            samples = _decode_frames(data, wf.getsampwidth(),
-                                     wf.getnchannels())
+        """Load an audio file (path or file object): WAV, or another
+        container through ffmpeg."""
+        samples, sr = _read_wav(file)
         return cls(samples, sr)
 
     @classmethod
@@ -145,3 +147,53 @@ def _decode_frames(data: bytes, sampwidth: int, nchannels: int) -> np.ndarray:
     if nchannels > 1:
         samples = samples.reshape(-1, nchannels)
     return samples
+
+
+def _read_wav(file):
+    """(samples, sample rate) of a WAV file: through ``wave``, then
+    ``scipy.io.wavfile`` for the WAV formats ``wave`` rejects (float
+    samples), then ``_read_via_ffmpeg`` for other containers."""
+    try:
+        with wave.open(file, "rb") as wf:
+            sr = wf.getframerate()
+            data = wf.readframes(wf.getnframes())
+            samples = _decode_frames(data, wf.getsampwidth(),
+                                     wf.getnchannels())
+        return samples, sr
+    except (wave.Error, EOFError, struct.error):
+        pass
+    try:
+        from scipy.io import wavfile
+        if hasattr(file, "seek"):
+            file.seek(0)
+        sr, samples = wavfile.read(file)
+        return samples, sr
+    except Exception:
+        pass
+    return _read_via_ffmpeg(file)
+
+
+def _read_via_ffmpeg(file, target_sr: int = 16000):
+    """Decode any container ffmpeg reads to mono int16 at ``target_sr``;
+    raises ``ValueError`` where ffmpeg is not installed or fails."""
+    if shutil.which("ffmpeg") is None:
+        raise ValueError(
+            f"cannot decode {file!r}: not a readable WAV and ffmpeg is not "
+            f"installed (needed for mp3/flac/opus)")
+    if hasattr(file, "read"):
+        if hasattr(file, "seek"):
+            file.seek(0)
+        data = file.read()
+        cmd_in = ["-i", "pipe:0"]
+    else:
+        data = None
+        cmd_in = ["-i", str(file)]
+    proc = subprocess.run(
+        ["ffmpeg", "-loglevel", "quiet"] + cmd_in
+        + ["-f", "s16le", "-acodec", "pcm_s16le", "-ac", "1",
+           "-ar", str(target_sr), "pipe:1"],
+        input=data, capture_output=True)
+    if proc.returncode != 0 or not proc.stdout:
+        raise ValueError(f"ffmpeg failed to decode {file!r}")
+    samples = np.frombuffer(proc.stdout, dtype=np.int16)
+    return samples, target_sr

@@ -1,8 +1,9 @@
 """Host-side audio featurizer (counterpart of
-ppasr_tpu/data/featurizer/audio_featurizer.py:14-58): resample →
-dB-normalize → kaldi fbank (``ops/fbank.fbank_numpy``). Dither only when
-``train=True``. The linear and MFCC features are not ported yet (ROADMAP
-Queue A, model zoo)."""
+ppasr_tpu/data/featurizer/audio_featurizer.py:14-62): resample →
+dB-normalize → kaldi fbank (``ops/fbank.fbank_numpy``), or with
+``waveform`` the same sample-domain prep alone, for the device frontend of
+``PPASRPredictor.predict_batch``. Dither only when ``train=True``. The
+linear and MFCC features are not ported yet (ROADMAP Queue A, model zoo)."""
 import numpy as np
 
 from ppasr_tpu_torch.data.audio import AudioSegment
@@ -41,3 +42,13 @@ class AudioFeaturizer:
         return fbank_numpy(samples, audio_segment.sample_rate,
                            num_mel_bins=self._n_mels,
                            dither=1.0 if self._train else 0.0, rng=self._rng)
+
+    def waveform(self, audio_segment: AudioSegment) -> np.ndarray:
+        """AudioSegment → int16-scaled float32 waveform with the same
+        sample-domain prep as ``featurize`` (resample + dB-normalize), for
+        a frontend that runs the fbank on the device."""
+        if audio_segment.sample_rate != self._target_sample_rate:
+            audio_segment.resample(self._target_sample_rate)
+        if self._use_dB_normalization:
+            audio_segment.normalize(target_db=self._target_dB)
+        return audio_segment.to('int16').astype(np.float32)

@@ -1,8 +1,18 @@
-"""CTC greedy decoding (copy of ppasr_tpu/decoders/greedy.py:23-97 on host
-numpy arrays): argmax → collapse repeats → drop blanks; score = mean of the
-kept frames' max-probs × 100. ``GreedyStreamingDecoder`` keeps the argmax
-history across chunks."""
+"""CTC greedy decoding (counterpart of ppasr_tpu/decoders/greedy.py:18-97):
+argmax → collapse repeats → drop blanks; score = mean of the kept frames'
+max-probs × 100. ``ctc_argmax`` reduces on the tensor's device, so
+``greedy_decoder_batch`` moves only the [B, T] id and score planes to the
+host; the collapse to text is host code. ``GreedyStreamingDecoder`` keeps
+the argmax history across chunks."""
 import numpy as np
+import torch
+
+
+def ctc_argmax(probs: torch.Tensor):
+    """[B, T, V] probs → ([B, T] argmax ids, [B, T] max probs) on the
+    tensor's device. ``torch.argmax`` returns the first maximal index, as
+    numpy and JAX do."""
+    return torch.argmax(probs, dim=-1), torch.amax(probs, dim=-1)
 
 
 def _collapse(ids: np.ndarray, max_probs: np.ndarray, vocabulary,
@@ -27,6 +37,20 @@ def greedy_decoder(probs, vocabulary, blank_index: int = 0):
     probs = np.asarray(probs)
     return _collapse(probs.argmax(axis=-1), probs.max(axis=-1), vocabulary,
                      blank_index)
+
+
+def greedy_decoder_batch(probs_batch: torch.Tensor, lens, vocabulary,
+                         blank_index: int = 0):
+    """[B, T, V] padded probs + [B] lens → list of (score, text). The
+    argmax and max run on the tensor's device (``ctc_argmax``)."""
+    ids, max_probs = ctc_argmax(probs_batch)
+    ids_b, maxp_b = ids.cpu().numpy(), max_probs.cpu().numpy()
+    out = []
+    for b in range(ids_b.shape[0]):
+        t = int(lens[b])
+        out.append(_collapse(ids_b[b, :t], maxp_b[b, :t], vocabulary,
+                             blank_index))
+    return out
 
 
 class GreedyStreamingDecoder:

@@ -1,0 +1,85 @@
+"""Recognize an audio file, offline or as a simulated stream (counterpart
+of the repository's infer_path.py, with --real_time_demo):
+
+    python -m ppasr_tpu_torch.infer_path --wav_path a.wav \
+        --model_path <exported dir> [--real_time_demo True]
+
+Runs on ``cuda:0`` unless ``--use_gpu False``. Long-audio mode,
+punctuation and inverse text normalization are not ported yet: their
+options raise ``NotImplementedError`` (ROADMAP Queue A item 14).
+"""
+import argparse
+import functools
+import time
+
+from ppasr_tpu_torch.data.audio import AudioSegment
+from ppasr_tpu_torch.predict import PPASRPredictor
+from ppasr_tpu_torch.utils.common import add_arguments, print_arguments
+from ppasr_tpu_torch.utils.logger import setup_logger
+
+logger = setup_logger(__name__)
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    add_arg = functools.partial(add_arguments, argparser=parser)
+    add_arg('configs', str, 'configs/conformer.yml', 'config file path')
+    add_arg('wav_path', str, 'dataset/test.wav', 'audio file to recognize')
+    add_arg('model_path', str,
+            'models/conformer_streaming_fbank/infer/', 'exported model dir')
+    add_arg('decoder', str, None, 'ctc_greedy (ctc_beam_search not ported)')
+    add_arg('is_long_audio', bool, False, 'use VAD-segmented long-audio mode')
+    add_arg('real_time_demo', bool, False, 'simulate streaming recognition')
+    add_arg('use_gpu', bool, True, 'run on cuda:0 (False: the CPU)')
+    add_arg('use_pun', bool, False, 'restore punctuation')
+    add_arg('is_itn', bool, False, 'inverse text normalization')
+    add_arg('use_device_frontend', bool, False,
+            'featurize on the card (streaming windows + offline batches)')
+    return parser.parse_args(argv)
+
+
+def predict_audio(predictor, wav_path):
+    start = time.time()
+    result = predictor.predict(wav_path)
+    logger.info(f"time: {int((time.time() - start) * 1000)}ms, "
+                f"score: {result['score']:.2f}, text: {result['text']}")
+    return result
+
+
+def real_time_predict_demo(predictor, wav_path):
+    """Feed the file in 0.5 s pieces as a live stream would."""
+    audio = AudioSegment.from_file(wav_path)
+    samples = audio.samples
+    sr = audio.sample_rate
+    chunk = int(0.5 * sr)
+    result = None
+    for i in range(0, len(samples), chunk):
+        is_end = i + chunk >= len(samples)
+        start = time.time()
+        result = predictor.predict_stream(samples[i:i + chunk],
+                                          is_end=is_end, sample_rate=sr)
+        logger.info(f"[{i / sr:5.1f}s] {int((time.time() - start) * 1000)}ms"
+                    f" → {result['text']}")
+    predictor.reset_stream()
+    return result
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    print_arguments(args=args)
+    for name in ('is_long_audio', 'use_pun', 'is_itn'):
+        if getattr(args, name):
+            raise NotImplementedError(
+                f"--{name} is not ported yet (ROADMAP Queue A item 14, "
+                f"periphery)")
+    predictor = PPASRPredictor(configs=args.configs,
+                               model_path=args.model_path,
+                               use_gpu=args.use_gpu, decoder=args.decoder,
+                               use_device_frontend=args.use_device_frontend)
+    if args.real_time_demo:
+        return real_time_predict_demo(predictor, args.wav_path)
+    return predict_audio(predictor, args.wav_path)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,90 @@
+"""Batched chunked-streaming encode for evaluation (counterpart of
+ppasr_tpu/models/streaming_eval.py).
+
+Drives ``get_encoder_out_chunk`` over decoding windows exactly as the
+streaming predictor does (window (chunk−1)·4 + 7 input frames, stride
+chunk·4), with B streams sharing one ``StreamingState`` on the model's
+device. ``streaming_greedy_batch`` takes the argmax and max of each
+window's posteriors on the device, so only [B, chunk] id and score planes
+go to the host. Both functions run under ``predict.ieee_float32()``.
+
+The JAX functions take ``params`` and jitted step functions; the port's
+take the module, which holds its weights, and run eagerly.
+"""
+import numpy as np
+import torch
+
+from ppasr_tpu_torch.decoders.greedy import ctc_argmax
+from ppasr_tpu_torch.predict import ieee_float32
+
+SUBSAMPLING = 4
+CONTEXT = 7
+
+
+def _window_plan(inputs, chunk):
+    """Shared padding/window math → (x padded, n_win, window, stride)."""
+    window = (chunk - 1) * SUBSAMPLING + CONTEXT
+    stride = chunk * SUBSAMPLING
+    inputs = np.asarray(inputs)
+    bsz, t_max, feat_dim = inputs.shape
+    out_total = max(1, max(int(t_max) - CONTEXT, 0) // SUBSAMPLING + 1)
+    n_win = -(-out_total // chunk)
+    pad_t = (n_win - 1) * stride + window
+    # pad_t can fall up to 3 frames short of t_max, when out_total is a
+    # multiple of chunk: those frames end no subsampling step and feed no
+    # output frame, so they are dropped (the JAX function raises there)
+    x = np.zeros((bsz, pad_t, feat_dim), np.float32)
+    x[:, :min(t_max, pad_t)] = inputs[:, :pad_t]
+    return x, n_win, window, stride
+
+
+def _out_lens(model, in_lens, t_cap):
+    out_factor = getattr(model, 'output_factor', 1)
+    olens = np.maximum(np.asarray(in_lens) - CONTEXT, 0) // SUBSAMPLING + 1
+    olens = (olens + out_factor - 1) // out_factor
+    return np.minimum(olens, t_cap).astype(np.int32)
+
+
+def _run_windows(model, inputs, chunk, left_chunks, reduce):
+    """[reduce(probs [B, chunk, V]) for each window], the windows run in
+    order on the model's device with one shared streaming state."""
+    device = next(model.parameters()).device
+    x, n_win, window, stride = _window_plan(inputs, chunk)
+    out = []
+    with torch.inference_mode(), ieee_float32():
+        state = model.init_state(x.shape[0], chunk * left_chunks, device)
+        for k in range(n_win):
+            xs = torch.from_numpy(
+                x[:, k * stride:k * stride + window]).to(device)
+            probs_k, state = model.get_encoder_out_chunk(xs, state)
+            out.append(reduce(probs_k[:, :chunk]))
+    return out
+
+
+def streaming_encode_batch(model, inputs, in_lens, chunk: int = 16,
+                           left_chunks: int = 16):
+    """[B, T, F] features → (probs [B, T', V] on the model's device,
+    out_lens [B] np) through the chunked-streaming path.
+
+    Tail windows are zero-padded up to the decoding window and clipped by
+    out_lens, the same approximation the single-stream predictor makes on
+    its final flush."""
+    probs = torch.cat(_run_windows(model, inputs, chunk, left_chunks,
+                                   lambda p: p), dim=1)
+    return probs, _out_lens(model, in_lens, probs.shape[1])
+
+
+def _argmax_planes(probs_k):
+    ids, max_probs = ctc_argmax(probs_k)
+    return ids.to(torch.int32).cpu().numpy(), max_probs.cpu().numpy()
+
+
+def streaming_greedy_batch(model, inputs, in_lens, chunk: int = 16,
+                           left_chunks: int = 16):
+    """Greedy variant: [B, T, F] → (ids [B, T'] np int32, max_probs
+    [B, T'] np, out_lens [B] np); per-window argmax on the device, host
+    concat. Feed the planes to ``decoders.greedy._collapse``."""
+    planes = _run_windows(model, inputs, chunk, left_chunks, _argmax_planes)
+    ids = np.concatenate([p[0] for p in planes], axis=1)
+    mp = np.concatenate([p[1] for p in planes], axis=1)
+    return ids, mp, _out_lens(model, in_lens, ids.shape[1])

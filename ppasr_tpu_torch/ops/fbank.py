@@ -11,7 +11,10 @@ plain version of the fused fbank kernel (``ops/fbank_cuda.py``,
 - ``fbank_frames_torch`` computes what ``fbank_frames_pallas`` computes:
   per-frame DC removal over the valid samples, pre-emphasis 0.97 with the
   first sample replicated, povey window, 512-point power spectrum, mel
-  projection, ``log(max(mel, 1.19e-7))``.
+  projection, ``log(max(mel, 1.19e-7))``;
+- ``fbank_batch_torch`` is ``fbank_jax`` (:229-293) at inference: padded
+  [B, S] waveforms and their sample counts → ([B, T, M] log-mel, [B] frame
+  counts), the plain version of ``fbank_cuda.fbank_batch``.
 
 Precision of the plain version: framing, DC removal, pre-emphasis and window
 run in float32 like the kernel; the DFT is ``torch.fft.rfft`` in float64
@@ -192,3 +195,32 @@ def fbank_frames_torch(frames: torch.Tensor, sample_rate: int = 16000,
         num_mel_bins, padded, float(sample_rate), low_freq, high_freq)).to(dev)
     mel = power @ mel_w.T
     return torch.log(torch.clamp(mel, min=EPSILON))
+
+
+def batch_frame_lens(lengths: torch.Tensor, max_t: int,
+                     window_size: int = 400,
+                     window_shift: int = 160) -> torch.Tensor:
+    """[B] sample counts → [B] int32 snip-edges frame counts, capped at the
+    batch's static frame capacity ``max_t`` (ppasr_tpu/ops/fbank.py:289-292)."""
+    lengths = lengths.to(torch.int32)
+    frame_lens = torch.where(lengths >= window_size,
+                             1 + (lengths - window_size) // window_shift, 0)
+    return torch.clamp(frame_lens, max=max_t).to(torch.int32)
+
+
+def fbank_batch_torch(waveform: torch.Tensor, lengths: torch.Tensor,
+                      sample_rate: int = 16000, num_mel_bins: int = 80,
+                      **kw):
+    """[B, S] int16-scaled waveforms + [B] sample counts → ([B, T, M]
+    float32 log-mel, [B] int32 frame counts) with the static frame capacity
+    T = 1 + (S − 400) // 160 (0 below 400 samples). Frames that run into a
+    row's padding are computed; callers mask them by the frame counts."""
+    bsz, s = waveform.shape
+    max_t = max(1 + (s - 400) // 160, 0)
+    frame_lens = batch_frame_lens(lengths, max_t)
+    if max_t == 0:
+        return (waveform.new_zeros((bsz, 0, num_mel_bins), dtype=torch.float32),
+                frame_lens)
+    frames = frame_torch(waveform.to(torch.float32), 400, 160, max_t)
+    return fbank_frames_torch(frames, sample_rate, num_mel_bins,
+                              **kw), frame_lens

@@ -25,7 +25,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ppasr_tpu_torch.ops.fbank import (fbank_frames_torch, frame_torch,
+from ppasr_tpu_torch.ops.fbank import (batch_frame_lens, fbank_batch_torch,
+                                       fbank_frames_torch, frame_torch,
                                        get_mel_banks, povey_window)
 
 WINDOW_SIZE = 400    # the kernel's frame length: 25 ms at 16 kHz
@@ -137,10 +138,13 @@ def _constants(device, num_mel_bins, sample_rate, low_freq, high_freq):
 def fbank_strided(wav: torch.Tensor, n_frames: int, frame_stride: int,
                   num_mel_bins: int = 80, sample_rate: int = 16000,
                   preemphasis: float = 0.97, remove_dc_offset: bool = True,
-                  low_freq: float = 20.0, high_freq: float = 0.0):
+                  low_freq: float = 20.0, high_freq: float = 0.0,
+                  out_rows: int = None):
     """Launch the kernel: frame f is ``wav.view(-1)[f*frame_stride:][:400]``
     for f < n_frames. ``wav`` is a contiguous float32 CUDA tensor holding
-    every sample the frames read. Returns [n_frames, num_mel_bins] float32."""
+    every sample the frames read. Returns [out_rows, num_mel_bins] float32
+    (``out_rows`` defaults to ``n_frames``) whose first n_frames rows the
+    kernel wrote; the rest are left unwritten."""
     global launches
     if wav.device.type != 'cuda':
         raise ValueError(f"fbank kernel needs a CUDA tensor, got {wav.device}")
@@ -159,7 +163,10 @@ def fbank_strided(wav: torch.Tensor, n_frames: int, frame_stride: int,
         raise ValueError(f"{n_frames} frames at stride {frame_stride} need "
                          f"{(n_frames - 1) * frame_stride + WINDOW_SIZE} "
                          f"samples, got {wav.numel()}")
-    out = torch.empty((n_frames, num_mel_bins), dtype=torch.float32,
+    out_rows = n_frames if out_rows is None else out_rows
+    if out_rows < n_frames:
+        raise ValueError(f"out_rows={out_rows} < n_frames={n_frames}")
+    out = torch.empty((out_rows, num_mel_bins), dtype=torch.float32,
                       device=wav.device)
     if n_frames == 0:
         return out
@@ -204,3 +211,35 @@ def fbank_window(wav: torch.Tensor, n_frames: int, num_mel_bins: int = 80,
     return fbank_strided(wav, n_frames, WINDOW_SHIFT, num_mel_bins,
                          sample_rate, **kw)
 
+
+def fbank_batch(wavs: torch.Tensor, lengths: torch.Tensor,
+                num_mel_bins: int = 80, sample_rate: int = 16000, **kw):
+    """[B, S] int16-scaled waveforms + [B] sample counts → ([B, T, M]
+    log-mel, [B] int32 frame counts), T = S/160 − 2: ``fbank_jax`` as
+    ``predict_batch``'s device frontend calls it (ppasr_tpu/predict.py:
+    184-190), in one launch on the card.
+
+    S must be a multiple of 160. With k = S/160, frame t of row b starts at
+    flat sample 160·(b·k + t), so one stride-160 launch of B·k − 2 frames
+    over the contiguous [B·S] buffer computes every frame of every row. Seen
+    as [B, k, M], the first k − 2 columns are row b's frames; the last two
+    straddle the next row (or run past the buffer's end) and are dropped."""
+    if wavs.ndim != 2:
+        raise ValueError(f"wavs must be [B, S], got {tuple(wavs.shape)}")
+    if wavs.device.type == 'cpu':
+        return fbank_batch_torch(wavs, lengths, sample_rate, num_mel_bins,
+                                 **kw)
+    bsz, s = wavs.shape
+    if not wavs.is_contiguous():
+        raise ValueError("fbank_batch needs a contiguous [B, S] tensor")
+    if s % WINDOW_SHIFT:
+        raise ValueError(f"S={s} is not a multiple of {WINDOW_SHIFT}: the "
+                         f"rows cannot share one stride-{WINDOW_SHIFT} "
+                         f"launch")
+    k = s // WINDOW_SHIFT
+    max_t = max(k - 2, 0)
+    frame_lens = batch_frame_lens(lengths.to(wavs.device), max_t)
+    out = fbank_strided(wavs.view(-1),
+                        bsz * k - 2 if max_t else 0, WINDOW_SHIFT,
+                        num_mel_bins, sample_rate, out_rows=bsz * k, **kw)
+    return out.view(bsz, k, num_mel_bins)[:, :max_t], frame_lens

@@ -1,8 +1,15 @@
-"""Inference runtime: offline and streaming (counterpart of
+"""Inference runtime: offline, batched and streaming (counterpart of
 ppasr_tpu/predict.py:37-652 for the streaming Conformer's main path).
 
 - ``predict`` (:331-353): host fbank → padded 1-second bucket → full-context
   encoder → greedy decode.
+- ``predict_batch`` (:355-431): the batch axis padded to a power of two, the
+  time axis to ``time_bucket_frames``; the host frontend featurizes each
+  utterance, the device frontend (``use_device_frontend=True``) pads the
+  int16-scaled waveforms to a multiple of ``time_bucket_frames``·160
+  samples and runs the fused fbank kernel once for the whole batch
+  (``ops/fbank_cuda.fbank_batch``); one encoder pass; greedy decoding with
+  the argmax on the device; padding rows dropped.
 - ``predict_stream`` (:480-605): the host-feature path, and with
   ``use_device_frontend=True`` the device path, where each raw window of
   (decoding_window−1)·160 + 400 samples goes through the fused fbank kernel
@@ -12,18 +19,20 @@ ppasr_tpu/predict.py:37-652 for the streaming Conformer's main path).
 
 Differences from the JAX predictor, on purpose: the model runs on
 ``cuda:0`` unless ``use_gpu=False``, and there is no fallback.
-``compute_dtype='float32'`` means IEEE float32 on the card: ``predict`` and
-``predict_stream`` turn TF32 off for matmuls and cuDNN while they run (the
-JAX package's ``Precision.HIGHEST``), whatever the process set. Without a
-card ``use_gpu=True`` raises; warm-up errors propagate; the decoders that
-are not ported yet raise ``NotImplementedError``; a missing
-``mean_istd.json`` raises. ``predict_batch`` comes next; ``predict_long``,
-punctuation and ITN come with the periphery (ROADMAP Queue A).
+``compute_dtype='float32'`` means IEEE float32 on the card: every entry
+point that runs the model holds ``ieee_float32()``, which turns TF32 off for
+matmuls and cuDNN while any caller is inside (the JAX package's
+``Precision.HIGHEST``), whatever the process set. Without a card
+``use_gpu=True`` raises; warm-up errors propagate; the decoders that are
+not ported yet raise ``NotImplementedError``; a missing ``mean_istd.json``
+raises. ``predict_long``, punctuation and ITN come with the periphery
+(ROADMAP Queue A item 14).
 """
 import contextlib
 import json
 import math
 import os
+import threading
 
 import numpy as np
 import torch
@@ -33,35 +42,57 @@ from ppasr_tpu_torch.data.audio import AudioSegment
 from ppasr_tpu_torch.data.featurizer.audio_featurizer import AudioFeaturizer
 from ppasr_tpu_torch.data.featurizer.text_featurizer import TextFeaturizer
 from ppasr_tpu_torch.decoders.greedy import (GreedyStreamingDecoder,
-                                             greedy_decoder)
+                                             greedy_decoder,
+                                             greedy_decoder_batch)
 from ppasr_tpu_torch.models.factory import build_model
-from ppasr_tpu_torch.ops.fbank_cuda import fbank_window
+from ppasr_tpu_torch.ops.fbank_cuda import fbank_batch, fbank_window
 from ppasr_tpu_torch.utils.checkpoint import convert_params, load_msgpack
 from ppasr_tpu_torch.utils.logger import setup_logger
 
 logger = setup_logger(__name__)
 
 
+_tf32_lock = threading.Lock()
+_tf32_callers = 0
+_tf32_saved = None
+
+
 @contextlib.contextmanager
 def ieee_float32():
-    """TF32 off for matmuls and cuDNN inside the block, the process' flags
-    restored after it. PyTorch lets cuDNN use TF32 by default, which would
-    run the subsampling and depthwise convolutions at a 10-bit mantissa.
-    Sets the same flags as ``torch.backends.cudnn.flags``."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """TF32 off for matmuls and cuDNN while any caller, in any thread, is
+    inside the block; the process' flags restored when the last one leaves.
+    The first to enter saves the flags, the last to leave restores them, so
+    a caller leaving never turns TF32 back on under another still inside.
+    PyTorch lets cuDNN use TF32 by default, which would run the subsampling
+    and depthwise convolutions at a 10-bit mantissa. Sets the same flags as
+    ``torch.backends.cudnn.flags``."""
+    global _tf32_callers, _tf32_saved
+    with _tf32_lock:
+        if _tf32_callers == 0:
+            _tf32_saved = (torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _tf32_callers += 1
     try:
         yield
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
+        with _tf32_lock:
+            _tf32_callers -= 1
+            if _tf32_callers == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _tf32_saved
+
+
+def _batch_bucket(n: int) -> int:
+    """The batch axis padded to a power of two, as the JAX predictor pads it
+    to bound its compiled shapes; the padding rows have length 0."""
+    return 1 << (n - 1).bit_length() if n > 1 else 1
 
 
 _NOT_PORTED_DECODERS = {
-    'ctc_beam_search': "ROADMAP Queue A, beam search",
-    'attention_rescoring': "ROADMAP Queue A, attention rescoring",
+    'ctc_beam_search': "ROADMAP Queue A item 10, beam search",
+    'attention_rescoring': "ROADMAP Queue A item 11, attention rescoring",
 }
 
 
@@ -87,10 +118,10 @@ class PPASRPredictor:
         self.device = torch.device('cuda:0' if use_gpu else 'cpu')
         if model_tag is not None:
             raise NotImplementedError("model_tag downloads are not ported "
-                                      "(ROADMAP Queue A, periphery)")
+                                      "(ROADMAP Queue A item 14, periphery)")
         if use_pun:
             raise NotImplementedError("punctuation is not ported yet "
-                                      "(ROADMAP Queue A, periphery)")
+                                      "(ROADMAP Queue A item 14, periphery)")
         if compute_dtype != 'float32':
             raise NotImplementedError(f"compute_dtype={compute_dtype!r}: the "
                                       f"port runs float32 only so far")
@@ -220,7 +251,8 @@ class PPASRPredictor:
         """Offline recognition → {'text', 'score'}."""
         if use_pun or is_itn:
             raise NotImplementedError("punctuation and ITN are not ported "
-                                      "yet (ROADMAP Queue A, periphery)")
+                                      "yet (ROADMAP Queue A item 14, "
+                                      "periphery)")
         audio = self._load_audio(audio_data, sample_rate)
         feat = self.audio_featurizer.featurize(audio)
         padded, t = self._pad_bucket(feat)
@@ -230,6 +262,64 @@ class PPASRPredictor:
         score, text = greedy_decoder(probs[0].cpu().numpy()[:int(olens[0])],
                                      self.vocab_list)
         return {'text': text, 'score': score}
+
+    @torch.inference_mode()
+    @ieee_float32()
+    def predict_batch(self, audio_list, use_pun: bool = False,
+                      is_itn: bool = False, sample_rate: int = 16000):
+        """Batched offline recognition: list of path / bytes / ndarray /
+        AudioSegment → list of {'text', 'score'}, one padded encoder pass
+        and one batched greedy decode."""
+        if use_pun or is_itn:
+            raise NotImplementedError("punctuation and ITN are not ported "
+                                      "yet (ROADMAP Queue A item 14, "
+                                      "periphery)")
+        if not audio_list:
+            return []
+        n = len(audio_list)
+        if self.use_device_frontend:
+            wav_batch, wlens = self._waveform_batch(audio_list, sample_rate)
+            batch, lens = fbank_batch(
+                torch.from_numpy(wav_batch).to(self.device),
+                torch.from_numpy(wlens).to(self.device),
+                num_mel_bins=self.input_dim,
+                sample_rate=self.audio_featurizer._target_sample_rate)
+        else:
+            feats = [self.audio_featurizer.featurize(
+                self._load_audio(a, sample_rate)) for a in audio_list]
+            max_t = max(f.shape[0] for f in feats)
+            bucket = max(self.time_bucket_frames,
+                         int(math.ceil(max_t / self.time_bucket_frames))
+                         * self.time_bucket_frames)
+            padded = np.zeros((_batch_bucket(n), bucket, feats[0].shape[1]),
+                              np.float32)
+            flens = np.zeros((padded.shape[0],), np.int32)
+            for i, f in enumerate(feats):
+                padded[i, :f.shape[0]] = f
+                flens[i] = f.shape[0]
+            batch = torch.from_numpy(padded).to(self.device)
+            lens = torch.from_numpy(flens).to(self.device)
+        probs, olens = self.model.get_encoder_out(batch, lens)
+        results = greedy_decoder_batch(probs[:n], olens[:n].cpu().numpy(),
+                                       self.vocab_list)
+        return [{'text': text, 'score': score} for score, text in results]
+
+    def _waveform_batch(self, audio_list, sample_rate: int = 16000):
+        """The device frontend's input: ([b_bucket, S] int16-scaled float32
+        waveforms, zero-padded, with S a multiple of
+        ``time_bucket_frames``·160 samples; [b_bucket] int32 sample
+        counts), as ppasr_tpu/predict.py:366-377 builds it."""
+        wavs = [self.audio_featurizer.waveform(
+            self._load_audio(a, sample_rate)) for a in audio_list]
+        samp_bucket = self.time_bucket_frames * 160
+        max_s = max(max(len(w) for w in wavs), 400)
+        max_s = int(math.ceil(max_s / samp_bucket)) * samp_bucket
+        wav_batch = np.zeros((_batch_bucket(len(wavs)), max_s), np.float32)
+        wlens = np.zeros((wav_batch.shape[0],), np.int32)
+        for i, w in enumerate(wavs):
+            wav_batch[i, :len(w)] = w
+            wlens[i] = len(w)
+        return wav_batch, wlens
 
     # ------------------------------------------------------------ streaming
 
@@ -255,7 +345,8 @@ class PPASRPredictor:
                                "use predict() instead")
         if use_pun or is_itn:
             raise NotImplementedError("punctuation and ITN are not ported "
-                                      "yet (ROADMAP Queue A, periphery)")
+                                      "yet (ROADMAP Queue A item 14, "
+                                      "periphery)")
         if isinstance(audio_data, bytes):
             audio = AudioSegment.from_pcm_bytes(audio_data, channels,
                                                 samp_width, sample_rate)

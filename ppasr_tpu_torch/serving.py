@@ -1,0 +1,196 @@
+"""Batched multi-stream streaming engine (counterpart of
+ppasr_tpu/serving.py:30-256, ``StreamingBatchEngine``).
+
+N streams share one batched device state: the encoder's ``StreamingState``
+is allocated with batch size ``max_streams`` on the predictor's device, each
+tick runs one chunk step for every slot, and a masked select keeps the
+state of the slots that had no window ready. Per-stream feature buffers,
+gain tracking and greedy decoders live on the host; the attention and
+convolution caches never leave the device. Features are made on the host
+through the predictor's ``stream_featurizer``, as the JAX engine makes them.
+
+The engine lock guards both the slot bookkeeping and the batch state; every
+chunk step also runs under ``predict.ieee_float32()``. Only the Conformer
+family is ported: ``stream_axes`` raises for the other states. Attention
+rescoring at a stream's end is absent, because the port's predictor raises
+on ``attention_rescoring``.
+"""
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ppasr_tpu_torch.data.audio import AudioSegment
+from ppasr_tpu_torch.decoders.greedy import GreedyStreamingDecoder
+from ppasr_tpu_torch.models.conformer_encoder import StreamingState
+from ppasr_tpu_torch.predict import ieee_float32
+
+
+class StreamingBatchEngine:
+    def __init__(self, predictor, max_streams: int = 16):
+        """``predictor``: a constructed streaming ``PPASRPredictor``, which
+        provides the model, its device, the featurizer and the chunk math."""
+        if not predictor.streaming:
+            raise ValueError("predictor was built non-streaming")
+        self.p = predictor
+        self.max_streams = max_streams
+        self.model = predictor.model
+        self.device = predictor.device
+        with torch.inference_mode():
+            self._batch_state = self.model.init_state(
+                max_streams, predictor.cache_size, self.device)
+        self._axes = self.stream_axes(self._batch_state)
+
+        self._lock = threading.Lock()
+        self._free = list(range(max_streams))
+        self._buffers = {}     # slot -> np feature buffer
+        self._wav_tail = {}    # slot -> un-framed samples
+        self._decoders = {}    # slot -> GreedyStreamingDecoder
+        self._gain = {}        # slot -> [sq_sum, n]
+        self.ticks = 0         # batched chunk steps run
+        self.tick_seconds = 0.0  # host clock over them, results on the host
+
+    @staticmethod
+    def stream_axes(state):
+        """The stream axis of each state field, by field (explicit: guessing
+        by size breaks where another dimension equals the stream count).
+        The port's layout is conformer_encoder.StreamingState's."""
+        if isinstance(state, StreamingState):
+            return StreamingState(0, 0, 1, 1, 1)
+        raise NotImplementedError(
+            f"streaming state {type(state).__name__} is not ported: the "
+            f"DeepSpeech2, Squeezeformer and EfficientConformer states come "
+            f"with the model zoo (ROADMAP Queue A item 13)")
+
+    def _select(self, mask, new_state, old_state):
+        """New state for the slots in ``mask`` ([S] bool on the device),
+        the old state for the others."""
+        def sel(axis, n, o):
+            shape = [1] * n.ndim
+            shape[axis] = mask.shape[0]
+            return torch.where(mask.reshape(shape), n, o)
+        return StreamingState(*(sel(a, n, o) for a, n, o in zip(
+            self._axes, new_state, old_state)))
+
+    # StreamingState.offset and cache_len are per-stream vectors: each slot's
+    # positional window and cache-validity mask advance only on its own
+    # ticks, so staggered streams are exact.
+
+    # -------------------------------------------------------------- lifecycle
+
+    def open_stream(self) -> Optional[int]:
+        """A free slot with its state zeroed, or None when all are taken."""
+        with self._lock:
+            if not self._free:
+                return None
+            slot = self._free.pop()
+            self._buffers[slot] = None
+            self._wav_tail[slot] = np.zeros(0, np.float32)
+            self._decoders[slot] = GreedyStreamingDecoder(self.p.vocab_list)
+            self._gain[slot] = [0.0, 0]
+            self._zero_slot(slot)
+        return slot
+
+    def close_stream(self, slot: int):
+        with self._lock:
+            for d in (self._buffers, self._wav_tail, self._decoders,
+                      self._gain):
+                d.pop(slot, None)
+            if slot not in self._free:
+                self._free.append(slot)
+
+    def _zero_slot(self, slot: int):
+        with torch.inference_mode():
+            for axis, x in zip(self._axes, self._batch_state):
+                x.select(axis, slot).zero_()
+
+    # ------------------------------------------------------------------ feed
+
+    def feed(self, slot: int, audio_data, is_end: bool = False,
+             sample_rate: int = 16000) -> dict:
+        """Feed PCM (bytes or float ndarray) for one stream; returns the
+        stream's current hypothesis {'text', 'score'}."""
+        if isinstance(audio_data, bytes):
+            audio = AudioSegment.from_pcm_bytes(audio_data,
+                                                sample_rate=sample_rate)
+        else:
+            audio = AudioSegment.from_ndarray(
+                np.asarray(audio_data, np.float32), sample_rate)
+        if audio.sample_rate != 16000:
+            audio.resample(16000)
+        s = audio.samples
+        with self._lock:
+            if slot not in self._gain:
+                raise KeyError(f"stream slot {slot} is not open")
+            if len(s):
+                self._gain[slot][0] += float(
+                    np.sum(s.astype(np.float64) ** 2))
+                self._gain[slot][1] += len(s)
+            self._wav_tail[slot] = np.concatenate([self._wav_tail[slot], s])
+
+            if len(self._wav_tail[slot]) >= 400:
+                seg = AudioSegment(self._wav_tail[slot].copy(), 16000)
+                feat = self.p.stream_featurizer.featurize(seg)
+                t = feat.shape[0]
+                if t > 0:
+                    self._wav_tail[slot] = self._wav_tail[slot][t * 160:]
+                    buf = self._buffers[slot]
+                    self._buffers[slot] = feat if buf is None \
+                        else np.concatenate([buf, feat])
+
+            self._tick(flush_slot=slot if is_end else None)
+            score, text = self._decoders[slot].current()
+        return {'text': text, 'score': score}
+
+    # ------------------------------------------------------------------ tick
+
+    def _gain_offset(self, slot: int) -> float:
+        if self.p._stream_target_db is None or not self._gain[slot][1]:
+            return 0.0
+        sq, n = self._gain[slot]
+        rms_db = 10.0 * np.log10(sq / n + 1e-20)
+        return float(min(self.p._stream_target_db - rms_db, 300.0)
+                     * np.log(10.0) / 10.0)
+
+    @torch.inference_mode()
+    @ieee_float32()
+    def _tick(self, flush_slot: Optional[int] = None):
+        """Batch one chunk step over every slot with a ready window, until
+        none is ready. Called with the engine lock held."""
+        win, stride, ctx = (self.p.decoding_window, self.p.stride,
+                            self.p.context)
+        while True:
+            ready = []
+            windows = np.zeros((self.max_streams, win,
+                                self.p.input_dim), np.float32)
+            valid = np.zeros((self.max_streams,), np.int32)
+            for slot, buf in list(self._buffers.items()):
+                if buf is None:
+                    continue
+                if buf.shape[0] >= win:
+                    windows[slot] = buf[:win] + self._gain_offset(slot)
+                    valid[slot] = win
+                    self._buffers[slot] = buf[stride:]
+                    ready.append(slot)
+                elif flush_slot == slot and buf.shape[0] >= ctx:
+                    t = buf.shape[0]
+                    windows[slot, :t] = buf + self._gain_offset(slot)
+                    valid[slot] = t
+                    self._buffers[slot] = None
+                    ready.append(slot)
+            if not ready:
+                return
+            t0 = time.perf_counter()
+            mask = torch.from_numpy(valid > 0).to(self.device)
+            probs, new_state = self.model.get_encoder_out_chunk(
+                torch.from_numpy(windows).to(self.device), self._batch_state)
+            self._batch_state = self._select(mask, new_state,
+                                             self._batch_state)
+            probs_np = probs.cpu().numpy()
+            self.ticks += 1
+            self.tick_seconds += time.perf_counter() - t0
+            for slot in ready:
+                n_out = ((int(valid[slot]) - ctx) // self.p.subsampling) + 1
+                self._decoders[slot].decode_chunk(probs_np[slot][:n_out])

@@ -7,10 +7,19 @@ Those two, and the fbank tests, also share this module's helpers; only
 The PCM is rendered by tools/synth_corpus.synth_utterance from the first
 three sentences of dataset/manifest.test with one np.random.default_rng(SEED)
 used in order, then stored as int16 the way synth_corpus.write_wav stores
-it. The transcripts come from ppasr_tpu.predict.PPASRPredictor on the CPU
-with the committed flagship checkpoint and greedy decoding: offline, and
-streamed in 0.16 s pieces with the device frontend (the Pallas fbank in
-interpret mode).
+it. The transcripts come from the JAX package on the CPU with the committed
+flagship checkpoint and greedy decoding:
+
+- ``jax_offline``, ``jax_stream``: ``PPASRPredictor.predict``, and
+  ``predict_stream`` in 0.16 s pieces with the device frontend (the Pallas
+  fbank in interpret mode);
+- ``jax_batch``, ``jax_batch_device``: ``predict_batch`` over
+  ``batch_utts`` (the three utterances and two cuts of them) on the host
+  frontend and on the device frontend (``fbank_jax``);
+- ``jax_engine``: ``serving.StreamingBatchEngine(max_streams=4)`` fed by
+  ``engine_texts`` (0.16 s pieces, interleaved, staggered);
+- ``jax_stream_eval``: ``models.streaming_eval.streaming_greedy_batch`` over
+  the three utterances' host features (``host_features``).
 
     JAX_PLATFORMS=cpu python tests/make_torch_smoke_fixture.py
 """
@@ -79,24 +88,91 @@ def stream_text(pred, pcm, piece=PIECE):
     return out['text']
 
 
+def batch_utts(pcms):
+    """The batch phase's five utterances: the three, the first half of the
+    first and the last two thirds of the third (mixed lengths, a batch that
+    is not a power of two)."""
+    return list(pcms) + [pcms[0][:len(pcms[0]) // 2],
+                         pcms[2][len(pcms[2]) // 3:]]
+
+
+def engine_texts(engine, pcms, piece=PIECE, stagger=2):
+    """Feed int16 utterance i through its own stream of ``engine`` as PCM
+    bytes, ``piece`` samples at a time, one piece per open stream in turn;
+    stream i opens once stream i − 1 has fed ``stagger`` pieces. The final
+    texts."""
+    n = len(pcms)
+    slots, pos, fed, texts = [], [0] * n, [0] * n, [None] * n
+    while any(t is None for t in texts):
+        if len(slots) < n and (not slots or fed[len(slots) - 1] >= stagger):
+            slots.append(engine.open_stream())
+        for i, slot in enumerate(slots):
+            if texts[i] is not None:
+                continue
+            pos[i] += piece
+            end = pos[i] >= len(pcms[i])
+            out = engine.feed(slot, pcms[i][pos[i] - piece:pos[i]].tobytes(),
+                              is_end=end)
+            fed[i] += 1
+            if end:
+                texts[i] = out['text']
+                engine.close_stream(slot)
+    return texts
+
+
+def host_features(pred, pcms):
+    """[B, T_max, D] zero-padded host features of ``pcms`` from the
+    predictor's offline featurizer, and their [B] frame counts."""
+    feats = [pred.audio_featurizer.featurize(pred._load_audio(p))
+             for p in pcms]
+    x = np.zeros((len(feats), max(f.shape[0] for f in feats),
+                  feats[0].shape[1]), np.float32)
+    for i, f in enumerate(feats):
+        x[i, :f.shape[0]] = f
+    return x, np.array([f.shape[0] for f in feats], np.int32)
+
+
+def rows_to_texts(collapse, ids, max_probs, out_lens, vocabulary):
+    """Greedy texts of [B, T'] id and score planes cut at ``out_lens``."""
+    return [collapse(ids[b, :int(n)], max_probs[b, :int(n)], vocabulary)[1]
+            for b, n in enumerate(out_lens)]
+
+
 def main():
     sys.path.insert(0, ROOT)
+    from ppasr_tpu.decoders.greedy import _collapse
+    from ppasr_tpu.models.streaming_eval import streaming_greedy_batch
     from ppasr_tpu.predict import PPASRPredictor
+    from ppasr_tpu.serving import StreamingBatchEngine
     texts = sentences()
     pcms = render(texts)
     with tempfile.TemporaryDirectory() as tmp:
-        pred = PPASRPredictor(model_path=flagship_artifact(tmp),
-                              use_device_frontend=True)
+        artifact = flagship_artifact(tmp)
+        pred = PPASRPredictor(model_path=artifact, use_device_frontend=True)
+        host = PPASRPredictor(model_path=artifact)
         offline = [pred.predict(p)['text'] for p in pcms]
         stream = [stream_text(pred, p) for p in pcms]
+        batch = [r['text'] for r in host.predict_batch(batch_utts(pcms))]
+        batch_device = [r['text']
+                        for r in pred.predict_batch(batch_utts(pcms))]
+        engine = engine_texts(StreamingBatchEngine(pred, max_streams=4),
+                              pcms)
+        x, lens = host_features(pred, pcms)
+        stream_eval = rows_to_texts(
+            _collapse, *streaming_greedy_batch(pred.model, pred.params, x,
+                                               lens), pred.vocab_list)
     np.savez_compressed(
         OUT, pcm=np.concatenate(pcms), lengths=np.array([len(p) for p in pcms]),
         texts=np.array(texts), jax_offline=np.array(offline),
         jax_stream=np.array(stream), seed=np.array(SEED),
-        piece=np.array(PIECE))
+        piece=np.array(PIECE), jax_batch=np.array(batch),
+        jax_batch_device=np.array(batch_device), jax_engine=np.array(engine),
+        jax_stream_eval=np.array(stream_eval))
     print(OUT, os.path.getsize(OUT), 'bytes')
-    for t, o, s in zip(texts, offline, stream):
-        print(t, o, s)
+    for row in zip(texts, offline, stream, engine, stream_eval):
+        print(*row)
+    for b, d in zip(batch, batch_device):
+        print(b, d)
 
 
 if __name__ == '__main__':

@@ -1,5 +1,7 @@
 """Kernel B1 (ppasr_tpu_torch/csrc/fbank.cu) against its plain PyTorch
-version and the host ``fbank_numpy`` on the card. CUDA C++ has no CPU mode,
+version and the host ``fbank_numpy`` on the card, through each of its
+wrappers: a streaming window, [N, 400] frames, and ``fbank_batch``'s one
+stride-160 launch over a flat [B·S] batch. CUDA C++ has no CPU mode,
 so these tests skip without a card. The file imports no JAX, so it also
 runs on a machine that has only the port's packages:
 
@@ -111,3 +113,63 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
         fbank_cuda.fbank_frames(torch.zeros(400, 4, device=dev).t())
     assert fbank_cuda.fbank_window(torch.zeros(399, device=dev),
                                    0).shape == (0, 80)
+
+
+def _ragged(bsz, s, seed):
+    """[B, S] speech-like rows zeroed past ragged lengths, and the lengths
+    (the first row full, the others shorter, one under 400 samples when
+    B > 2)."""
+    rng = np.random.default_rng(seed)
+    lengths = np.array([s] + [int(rng.integers(400, s)) for _ in
+                              range(bsz - 1)], np.int32)
+    if bsz > 2:
+        lengths[-1] = 399
+    wavs = np.stack([speechlike(s, seed=seed + b) for b in range(bsz)])
+    for row, n in zip(wavs, lengths):
+        row[n:] = 0.0
+    return wavs, lengths
+
+
+def _check_batch(wavs, lengths):
+    """One fbank_batch launch on the card against fbank_batch_torch."""
+    before = fbank_cuda.launches
+    got, got_lens = fbank_cuda.fbank_batch(wavs, lengths)
+    torch.cuda.synchronize()
+    assert fbank_cuda.launches == before + 1
+    want, want_lens = F.fbank_batch_torch(wavs.cpu(), lengths.cpu())
+    assert got.shape == want.shape
+    assert torch.equal(got_lens.cpu(), want_lens)
+    _close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('s', [16000, 48000])
+@pytest.mark.parametrize('bsz', [1, 3, 5])
+def test_batch_launch_matches_plain_version_on_card(bsz, s):
+    dev = _card()
+    wavs, lengths = _ragged(bsz, s, seed=bsz * 7 + s // 16000)
+    _check_batch(torch.from_numpy(wavs).to(dev), torch.from_numpy(lengths))
+
+
+@pytest.mark.gpu
+def test_batch_launch_from_base_pointer_at_odd_offset():
+    dev = _card()
+    wavs, lengths = _ragged(3, 16000, seed=5)
+    buf = torch.from_numpy(np.concatenate([[0.0], wavs.ravel()]).astype(
+        np.float32)).to(dev)
+    shifted = buf[1:].view(3, 16000)
+    assert shifted.data_ptr() % 8 == 4 and shifted.is_contiguous()
+    _check_batch(shifted, torch.from_numpy(lengths))
+
+
+@pytest.mark.gpu
+def test_batch_launch_rejects_rows_off_the_hop():
+    dev = _card()
+    before = fbank_cuda.launches
+    with pytest.raises(ValueError, match='multiple of 160'):
+        fbank_cuda.fbank_batch(torch.zeros(2, 16080 + 1, device=dev),
+                               torch.tensor([16081, 400], device=dev))
+    with pytest.raises(ValueError, match='contiguous'):
+        fbank_cuda.fbank_batch(torch.zeros(16000, 2, device=dev).t(),
+                               torch.tensor([16000, 400], device=dev))
+    assert fbank_cuda.launches == before

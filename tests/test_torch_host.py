@@ -6,6 +6,7 @@ import os
 
 import numpy as np
 import pytest
+from scipy.io import wavfile
 
 from ppasr_tpu.config import load_config as jax_load_config
 from ppasr_tpu.data.audio import AudioSegment as JaxSegment
@@ -15,6 +16,7 @@ from ppasr_tpu.data.featurizer.text_featurizer import \
     TextFeaturizer as JaxText
 from ppasr_tpu.decoders import greedy as jax_greedy
 from ppasr_tpu_torch.config import load_config
+from ppasr_tpu_torch.data import audio as port_audio
 from ppasr_tpu_torch.data.audio import AudioSegment
 from ppasr_tpu_torch.data.featurizer.audio_featurizer import AudioFeaturizer
 from ppasr_tpu_torch.data.featurizer.text_featurizer import TextFeaturizer
@@ -49,6 +51,35 @@ def test_audio_segment_matches_jax(tmp_path):
         np.testing.assert_array_equal(mine.to('int16'), ref.to('int16'))
         assert mine.num_samples == ref.num_samples
         assert mine.rms_db == ref.rms_db
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+def test_float_wav_loads_as_in_jax(tmp_path, dtype):
+    """A float WAV, which the ``wave`` module rejects, loads through
+    scipy.io.wavfile as in the JAX package."""
+    path = str(tmp_path / 'f.wav')
+    wavfile.write(path, 16000, (_pcm(8000, seed=3) / 32768.0).astype(dtype))
+    mine, ref = AudioSegment.from_file(path), JaxSegment.from_file(path)
+    assert mine.sample_rate == ref.sample_rate == 16000
+    np.testing.assert_array_equal(mine.samples, ref.samples)
+    with open(path, 'rb') as f:
+        np.testing.assert_array_equal(AudioSegment.from_file(f).samples,
+                                      ref.samples)
+
+
+def test_undecodable_file_without_ffmpeg_raises_as_jax(tmp_path,
+                                                       monkeypatch):
+    path = str(tmp_path / 'x.mp3')
+    with open(path, 'wb') as f:
+        f.write(b'ID3 not a wav file' * 8)
+    monkeypatch.setattr(port_audio.shutil, 'which', lambda name: None)
+    monkeypatch.setattr('shutil.which', lambda name: None)
+    with pytest.raises(ValueError) as mine:
+        AudioSegment.from_file(path)
+    with pytest.raises(ValueError) as ref:
+        JaxSegment.from_file(path)
+    assert str(mine.value) == str(ref.value)
+    assert 'ffmpeg is not installed' in str(mine.value)
 
 
 @pytest.mark.parametrize('dbnorm', [True, False])

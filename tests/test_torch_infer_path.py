@@ -1,0 +1,66 @@
+"""The port's CLI, ``python -m ppasr_tpu_torch.infer_path``, on the tiny
+artifact of tests/torch_tiny_artifact.py and a WAV file, on the CPU: its
+offline and simulated-streaming texts equal the JAX predictor's on the same
+file and config; the options not ported yet raise; ``strtobool`` parses
+``bool`` options as ``distutils.util.strtobool`` did."""
+import os
+import sys
+
+import pytest
+
+from ppasr_tpu.data.audio import AudioSegment as JaxSegment
+from ppasr_tpu.predict import PPASRPredictor as JaxPredictor
+from ppasr_tpu_torch import infer_path
+from ppasr_tpu_torch.utils.common import strtobool
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_tiny_artifact import speechlike, write_artifact  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIG = os.path.join(ROOT, 'configs', 'conformer.yml')
+
+
+@pytest.fixture(scope='module')
+def setup(tmp_path_factory):
+    out = tmp_path_factory.mktemp('cli')
+    artifact = write_artifact(out)
+    wav = str(out / 'utt.wav')
+    JaxSegment(speechlike(int(2.6 * 16000), 21), 16000).to_wav_file(wav)
+    args = ['--configs', CONFIG, '--model_path', artifact, '--wav_path', wav,
+            '--decoder', 'ctc_greedy', '--use_gpu', 'False']
+    jax_pred = JaxPredictor(configs=CONFIG, model_path=artifact,
+                            decoder='ctc_greedy')
+    return args, wav, jax_pred
+
+
+def test_offline_text_matches_jax(setup):
+    args, wav, jax_pred = setup
+    got = infer_path.main(args)
+    assert got['text'] == jax_pred.predict(wav)['text']
+    assert len(got['text']) > 5
+
+
+def test_real_time_demo_matches_jax(setup):
+    args, wav, jax_pred = setup
+    got = infer_path.main(args + ['--real_time_demo', 'True'])
+    samples = JaxSegment.from_file(wav).samples
+    jax_pred.reset_stream()
+    for i in range(0, len(samples), 8000):
+        want = jax_pred.predict_stream(samples[i:i + 8000],
+                                       is_end=i + 8000 >= len(samples))
+    assert got['text'] == want['text'] and len(want['text']) > 5
+
+
+@pytest.mark.parametrize('option', ['is_long_audio', 'use_pun', 'is_itn'])
+def test_unported_options_raise(setup, option):
+    with pytest.raises(NotImplementedError, match='ROADMAP Queue A item 14'):
+        infer_path.main(setup[0] + [f'--{option}', 'true'])
+
+
+def test_strtobool():
+    for word in ('y', 'YES', 't', 'True', 'on', '1'):
+        assert strtobool(word) is True
+    for word in ('n', 'No', 'f', 'FALSE', 'off', '0'):
+        assert strtobool(word) is False
+    with pytest.raises(ValueError):
+        strtobool('maybe')

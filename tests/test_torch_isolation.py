@@ -1,6 +1,7 @@
 """The port stands alone: ``ppasr_tpu_torch`` and ``chip_smoke.py`` import
-none of JAX, flax, the JAX package, msgpack, PyYAML or distutils (the card's
-machine has torch, numpy and scipy, and Python 3.12 has no distutils), and
+none of JAX, flax, the JAX package, msgpack, PyYAML, distutils or
+Levenshtein (the card's machine has torch, numpy and scipy, and Python 3.12
+has no distutils), and
 the predictor refuses ``use_gpu=True`` without a card. ``chip_smoke.py``
 also imports the fixture helpers in tests/make_torch_smoke_fixture.py, whose
 JAX import sits inside ``main``; importing it loads none of the above."""
@@ -15,7 +16,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'ppasr_tpu', 'msgpack', 'yaml',
-             'distutils')
+             'distutils', 'Levenshtein')
 
 
 def _port_sources():
@@ -49,7 +50,9 @@ def test_no_forbidden_imports(path):
 
 def test_import_leaves_no_forbidden_module_loaded():
     code = ("import sys, chip_smoke, ppasr_tpu_torch.predict, "
-            "ppasr_tpu_torch.ops.fbank_cuda;"
+            "ppasr_tpu_torch.ops.fbank_cuda, ppasr_tpu_torch.serving, "
+            "ppasr_tpu_torch.models.streaming_eval, "
+            "ppasr_tpu_torch.utils.metrics, ppasr_tpu_torch.infer_path;"
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,

@@ -1,81 +1,29 @@
-"""Port parity of the predictor: a tiny exported artifact (``inference.json``
-in the format of ppasr_tpu/trainer.py:919-930, ``model.msgpack`` written by
-flax, the vocabulary and ``mean_istd.json``) decoded by the JAX
+"""Port parity of the predictor: the tiny exported artifact of
+tests/torch_tiny_artifact.py decoded by the JAX
 ``PPASRPredictor(use_device_frontend=True)`` (the Pallas fbank in interpret
 mode on the CPU) and by the port's (``use_gpu=False``, the plain fbank).
-Texts must be identical, offline and streamed in 0.16 s pieces.
-
-The artifact's CMVN is computed from the features of synthetic speech, as
-a trained model's is from its corpus, so the untrained encoder's output
-varies over time and the decoded texts are many characters long."""
-import json
+Texts must be identical, offline and streamed in 0.16 s pieces. Also the
+precision context ``ieee_float32`` across threads."""
 import os
+import sys
+import threading
 
-import jax
-import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
-from flax import serialization
 
-from ppasr_tpu.data.audio import AudioSegment as JaxSegment
-from ppasr_tpu.models.conformer import ConformerModel as JaxConformer
-from ppasr_tpu.ops.fbank import fbank_numpy
 from ppasr_tpu.predict import PPASRPredictor as JaxPredictor
+from ppasr_tpu_torch import predict as port_predict
 from ppasr_tpu_torch.ops import fbank_cuda
 from ppasr_tpu_torch.predict import PPASRPredictor
 
-D = 80
-CHARS = list('abcdefghijklmnopqrstuvwxyz') + ['<space>']
-VOCAB = ['<blank>', '<unk>'] + CHARS + ['<eos>']
-ENC = dict(output_size=64, attention_heads=4, linear_units=128, num_blocks=2,
-           cnn_module_kernel=15, block_final_norm=False)
-DEC = dict(attention_heads=4, linear_units=64, num_blocks=1, r_num_blocks=1)
-
-
-def _speechlike(n_samples, seed):
-    rng = np.random.default_rng(seed)
-    t = np.arange(n_samples) / 16000.0
-    f0 = 110 + 60 * np.sin(2 * np.pi * 0.9 * t + seed)
-    phase = 2 * np.pi * np.cumsum(f0) / 16000.0
-    voiced = sum(np.sin(k * phase) * rng.uniform(0.2, 1.0) / k
-                 for k in range(1, 15))
-    env = np.clip(np.sin(2 * np.pi * 3.1 * t) ** 2 + 0.1 * rng.standard_normal(
-        n_samples), 0, 1)
-    x = 0.3 * env * voiced + 0.01 * rng.standard_normal(n_samples)
-    return (np.clip(x, -1, 1) * 32767).astype(np.int16)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_tiny_artifact import speechlike as _speechlike  # noqa: E402
+from torch_tiny_artifact import write_artifact  # noqa: E402
 
 
 @pytest.fixture(scope='module')
 def artifact(tmp_path_factory):
-    out = tmp_path_factory.mktemp('tiny_artifact')
-    with open(out / 'vocabulary.txt', 'w', encoding='utf-8') as f:
-        f.write(''.join(f'{tok}\t1\n' for tok in VOCAB))
-    feats = []
-    for seed in (11, 12, 13):
-        seg = JaxSegment(_speechlike(32000, seed), 16000)
-        seg.normalize(-20)
-        feats.append(fbank_numpy(seg.to('int16').astype(np.float32)))
-    feats = np.concatenate(feats)
-    with open(out / 'mean_istd.json', 'w', encoding='utf-8') as f:
-        json.dump({'mean': feats.mean(0).tolist(),
-                   'istd': (1.0 / feats.std(0)).tolist()}, f)
-    model = JaxConformer(input_size=D, vocab_size=len(VOCAB), streaming=True,
-                         encoder_conf=ENC, decoder_conf=DEC)
-    key = jax.random.PRNGKey(3)
-    params = model.init({'params': key, 'dropout': key, 'chunk': key},
-                        jnp.zeros((1, 64, D)), jnp.asarray([64]),
-                        jnp.asarray([[1, 2]]), jnp.asarray([2]),
-                        deterministic=True)
-    params = jax.tree.map(np.asarray, params)
-    with open(out / 'model.msgpack', 'wb') as f:
-        f.write(serialization.to_bytes(params))
-    with open(out / 'inference.json', 'w', encoding='utf-8') as f:
-        json.dump({'use_model': 'conformer', 'streaming': True,
-                   'input_dim': D, 'vocab_size': len(VOCAB),
-                   'encoder_conf': ENC, 'decoder_conf': DEC,
-                   'model_conf': {'ctc_weight': 0.3}}, f, indent=2)
-    return str(out)
+    return write_artifact(tmp_path_factory.mktemp('tiny_artifact'))
 
 
 @pytest.fixture(scope='module')
@@ -155,3 +103,44 @@ def test_model_runs_without_tf32_and_flags_are_restored(predictors,
     assert len(seen) > 2 and set(seen) == {(False, False)}
     assert torch.backends.cuda.matmul.allow_tf32
     assert torch.backends.cudnn.allow_tf32
+
+
+def _flags():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def test_ieee_float32_keeps_tf32_off_while_any_thread_is_inside(monkeypatch):
+    """A enters, B enters, A leaves: TF32 stays off for B. B leaves: the
+    flags the process had come back."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', True)
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', True)
+    a_in, b_in, a_out, b_may_leave = (threading.Event() for _ in range(4))
+    seen = {}
+
+    def thread_a():
+        with port_predict.ieee_float32():
+            a_in.set()
+            b_in.wait(10)
+        a_out.set()
+
+    def thread_b():
+        a_in.wait(10)
+        with port_predict.ieee_float32():
+            b_in.set()
+            a_out.wait(10)
+            seen['after_a_left'] = _flags()
+            b_may_leave.wait(10)
+
+    threads = [threading.Thread(target=f) for f in (thread_a, thread_b)]
+    for t in threads:
+        t.start()
+    a_out.wait(10)
+    b_in.wait(10)
+    seen['main_with_b_inside'] = _flags()
+    b_may_leave.set()
+    for t in threads:
+        t.join(10)
+    assert seen == {'after_a_left': (False, False),
+                    'main_with_b_inside': (False, False)}
+    assert _flags() == (True, True)

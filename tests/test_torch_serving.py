@@ -1,0 +1,62 @@
+"""Port parity of the multi-stream engine: the JAX
+``serving.StreamingBatchEngine`` and the port's, with ``max_streams=4``, on
+the tiny artifact of tests/torch_tiny_artifact.py. Three streams are fed as
+PCM bytes in 0.16 s pieces, interleaved and staggered (stream i opens once
+stream i − 1 has fed two pieces: ``engine_texts`` of
+tests/make_torch_smoke_fixture.py). Texts must be identical to JAX's, and
+each stream's text equal to the port's single-stream host-frontend
+``predict_stream`` of the same utterance."""
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ppasr_tpu.predict import PPASRPredictor as JaxPredictor
+from ppasr_tpu.serving import StreamingBatchEngine as JaxEngine
+from ppasr_tpu_torch.models.conformer_encoder import StreamingState
+from ppasr_tpu_torch.predict import PPASRPredictor
+from ppasr_tpu_torch.serving import StreamingBatchEngine
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from make_torch_smoke_fixture import engine_texts, stream_text  # noqa: E402
+from torch_tiny_artifact import speechlike, write_artifact  # noqa: E402
+
+
+@pytest.fixture(scope='module')
+def predictors(tmp_path_factory):
+    artifact = write_artifact(tmp_path_factory.mktemp('tiny_artifact'))
+    return (JaxPredictor(model_path=artifact),
+            PPASRPredictor(model_path=artifact, use_gpu=False))
+
+
+@pytest.mark.parametrize('seed', [1, 2])
+def test_staggered_streams_match_jax_and_single_stream(predictors, seed):
+    jax_pred, port_pred = predictors
+    rng = np.random.default_rng(seed)
+    pcms = [speechlike(int(rng.uniform(1.5, 3.0) * 16000), seed * 10 + i)
+            for i in range(3)]
+    got = engine_texts(StreamingBatchEngine(port_pred, max_streams=4), pcms)
+    want = engine_texts(JaxEngine(jax_pred, max_streams=4), pcms)
+    assert got == want
+    assert all(len(t) > 5 for t in want)
+    assert got == [stream_text(port_pred, p) for p in pcms]
+
+
+def test_slots_capacity_and_closed_slot(predictors):
+    engine = StreamingBatchEngine(predictors[1], max_streams=2)
+    slots = [engine.open_stream(), engine.open_stream()]
+    assert sorted(slots) == [0, 1]
+    assert engine.open_stream() is None
+    engine.close_stream(slots[0])
+    with pytest.raises(KeyError):
+        engine.feed(slots[0], np.zeros(2560, np.float32))
+    assert engine.open_stream() == slots[0]
+
+
+def test_stream_axes_name_the_layout():
+    state = StreamingState(*(torch.zeros(1) for _ in range(5)))
+    assert StreamingBatchEngine.stream_axes(state) == (0, 0, 1, 1, 1)
+    with pytest.raises(NotImplementedError, match='ROADMAP Queue A item 13'):
+        StreamingBatchEngine.stream_axes((torch.zeros(1), torch.zeros(1)))

@@ -1,0 +1,73 @@
+"""A tiny exported streaming-Conformer artifact for the port's parity tests
+(``inference.json`` in the format of ppasr_tpu/trainer.py:919-930,
+``model.msgpack`` written by flax from a seeded init, the vocabulary and
+``mean_istd.json``), and the speech-like int16 PCM those tests decode.
+
+The artifact's CMVN is computed from the features of synthetic speech, as
+a trained model's is from its corpus, so the untrained encoder's output
+varies over time and the decoded texts are many characters long. Imports
+JAX: only the tests that compare the two packages use it."""
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+from flax import serialization
+
+from ppasr_tpu.data.audio import AudioSegment as JaxSegment
+from ppasr_tpu.models.conformer import ConformerModel as JaxConformer
+from ppasr_tpu.ops.fbank import fbank_numpy
+
+D = 80
+CHARS = list('abcdefghijklmnopqrstuvwxyz') + ['<space>']
+VOCAB = ['<blank>', '<unk>'] + CHARS + ['<eos>']
+ENC = dict(output_size=64, attention_heads=4, linear_units=128, num_blocks=2,
+           cnn_module_kernel=15, block_final_norm=False)
+DEC = dict(attention_heads=4, linear_units=64, num_blocks=1, r_num_blocks=1)
+
+
+def speechlike(n_samples, seed):
+    """int16 PCM at 16 kHz: harmonics of a gliding pitch under a syllable-
+    rate envelope, with noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_samples) / 16000.0
+    f0 = 110 + 60 * np.sin(2 * np.pi * 0.9 * t + seed)
+    phase = 2 * np.pi * np.cumsum(f0) / 16000.0
+    voiced = sum(np.sin(k * phase) * rng.uniform(0.2, 1.0) / k
+                 for k in range(1, 15))
+    env = np.clip(np.sin(2 * np.pi * 3.1 * t) ** 2 + 0.1 * rng.standard_normal(
+        n_samples), 0, 1)
+    x = 0.3 * env * voiced + 0.01 * rng.standard_normal(n_samples)
+    return (np.clip(x, -1, 1) * 32767).astype(np.int16)
+
+
+def write_artifact(out):
+    """Write the tiny artifact into the directory ``out`` (a Path); returns
+    it as a str."""
+    with open(out / 'vocabulary.txt', 'w', encoding='utf-8') as f:
+        f.write(''.join(f'{tok}\t1\n' for tok in VOCAB))
+    feats = []
+    for seed in (11, 12, 13):
+        seg = JaxSegment(speechlike(32000, seed), 16000)
+        seg.normalize(-20)
+        feats.append(fbank_numpy(seg.to('int16').astype(np.float32)))
+    feats = np.concatenate(feats)
+    with open(out / 'mean_istd.json', 'w', encoding='utf-8') as f:
+        json.dump({'mean': feats.mean(0).tolist(),
+                   'istd': (1.0 / feats.std(0)).tolist()}, f)
+    model = JaxConformer(input_size=D, vocab_size=len(VOCAB), streaming=True,
+                         encoder_conf=ENC, decoder_conf=DEC)
+    key = jax.random.PRNGKey(3)
+    params = model.init({'params': key, 'dropout': key, 'chunk': key},
+                        jnp.zeros((1, 64, D)), jnp.asarray([64]),
+                        jnp.asarray([[1, 2]]), jnp.asarray([2]),
+                        deterministic=True)
+    params = jax.tree.map(np.asarray, params)
+    with open(out / 'model.msgpack', 'wb') as f:
+        f.write(serialization.to_bytes(params))
+    with open(out / 'inference.json', 'w', encoding='utf-8') as f:
+        json.dump({'use_model': 'conformer', 'streaming': True,
+                   'input_dim': D, 'vocab_size': len(VOCAB),
+                   'encoder_conf': ENC, 'decoder_conf': DEC,
+                   'model_conf': {'ctc_weight': 0.3}}, f, indent=2)
+    return str(out)
