@@ -36,7 +36,22 @@ is not 0:
 7. stream eval: ``streaming_greedy_batch`` over the three utterances' host
    features; transcripts must equal the fixture's JAX texts; its CER
    (``utils/metrics.cer``) against the references;
-8. timing, after the paths, whose real-time factors are thus read
+8. beam: the flagship's beam search at its configured width (beam 300,
+   ``cutoff_top_n`` 40, ``cutoff_prob`` 0.99, α 0.8, β 1.0, the trigram
+   ``lm/synth_lm.arpa`` fused through the hash tables; the configuration
+   read from the fixture) with the on-device backend on ``cuda:0``:
+   ``predict`` on the three utterances, ``predict_stream`` on them in
+   0.16 s pieces with the device frontend (one fbank launch per window)
+   and ``predict_batch`` over the five on the device frontend (the logits
+   path, one fbank launch); texts must equal the fixture's JAX beam texts
+   and scores must agree within ``BEAM_SCORE_TOL``; the decoder's LM tables
+   and streaming state must be on the card; then ``backend='native'``
+   (csrc/ctc_decoder.cpp built with g++) on the three utterances against
+   the fixture's JAX native texts. Prints each entry point's wall time per
+   call, the frames the scan decoded after compaction, and one
+   ``torch.profiler`` session (CUDA activity only) over one batch decode:
+   device time and launches per scan step;
+9. timing, after the paths, whose real-time factors are thus read
    before the process first runs the profiler: at each shape of phase 3,
    three rounds time in turn the kernel, the plain version,
    ``torch.fft.rfft`` alone on the same frames, and the kernel again, each
@@ -44,7 +59,7 @@ is not 0:
    included) and the kernel and ``rfft`` also on the device alone
    (``device_ms``, from ``torch.profiler`` recording CUDA activity only);
    and the bound. The kernel table's ``ms`` is ``call_ms`` at the window,
-   its ``launches`` the launches of phases 4 and 5, and its
+   its ``launches`` the launches of phases 4, 5 and 8, and its
    ``max_abs_err`` the largest of phases 3 and 5.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
@@ -294,7 +309,7 @@ def check_kernel(dev):
 
 
 def time_kernel(shapes):
-    """Phase 5: the timings of every shape of phase 3, beside its bound;
+    """Phase 9: the timings of every shape of phase 3, beside its bound;
     returns the table entry."""
     rows = []
     for case in shapes:
@@ -492,6 +507,161 @@ def engine_path(card, pred, data, pcms):
     expect('engine', texts, data, 'jax_engine')
 
 
+def timed(fn):
+    """(fn(), wall seconds, the card synchronised after)."""
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def expect_beam(name, results, data, key):
+    """Raise unless the beam results equal the fixture's JAX texts, with
+    every score within fx.BEAM_SCORE_TOL of JAX's."""
+    expect(name, [r['text'] for r in results], data, key)
+    dscore = np.abs(np.array([r['score'] for r in results])
+                    - data[key + '_scores']).max()
+    print(f"  {name}: texts equal to {key}, max |Δscore| {dscore:.3g}",
+          flush=True)
+    if not dscore <= fx.BEAM_SCORE_TOL:
+        raise AssertionError(f"{name} scores differ from JAX's ({key}) by "
+                             f"{dscore}, above {fx.BEAM_SCORE_TOL}")
+
+
+def beam_step_bound_ms(rows, dec):
+    """Least time for one 'match' step of the beam on this card class: the
+    larger of the bytes it must move (each row's state read and written,
+    its frame's candidates read, one displacement, fingerprint and value
+    gathered for each of the K·N extends at each LM order above 1, and one
+    more for each beam's backoff) over the memory rate, and its fp32
+    operations (the [K·N, K] hash compare, masked max, exp and sum, five
+    per entry) over the fp32 peak."""
+    k, n, u = dec.beam_size, dec.cutoff_top_n, dec.max_prefix_len
+    orders = dec.lm_hash.order - 1 if dec.lm_hash is not None else 0
+    state = k * u * 4 + k * 8 * 3 + k * 4 * 2
+    nbytes = rows * (2 * state + 4 + n * 12 + orders * (k * n + k) * 20)
+    ops = rows * 5 * k * n * k
+    return max(nbytes / PEAK_BYTES, ops / PEAK_FP32_FLOPS) * 1e3
+
+
+def profile_batch_decode(card, pred, pcms):
+    """One torch.profiler session (CUDA activity only) over one batch
+    decode from the CTC logits of the five utterances' host features:
+    device time and launches, each per scan step; and the wall per call."""
+    dec = pred._beam_decoder
+    utts = fx.batch_utts(pcms)
+    x, lens = fx.host_features(pred, utts)
+    with torch.inference_mode(), ieee_float32():
+        logits, olens = pred.model.get_encoder_logits(
+            torch.from_numpy(x).to(pred.device),
+            torch.from_numpy(lens).to(pred.device))
+        decode = lambda: dec.decode_batch_from_logits(logits, olens)  # noqa
+        dec.frames_decoded = 0
+        decode()
+        steps = dec.frames_decoded
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            decode()
+            torch.cuda.synchronize()
+        wall_ms = call_ms(decode, 5, warmup=1)
+    total_us, kernels = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            total_us += evt.self_device_time_total
+            kernels += evt.count
+    if total_us <= 0 or steps == 0:
+        raise AssertionError(f"the profiler recorded {total_us} µs over "
+                             f"{steps} scan steps")
+    print(f"  on {card}: one batch decode of {len(utts)} utterances, logits "
+          f"{list(logits.shape)}, {steps} scan steps after compaction: "
+          f"{total_us / 1e3:.4f} ms on the device in {kernels} launches "
+          f"(phase 1 included), {total_us / 1e3 / steps:.4f} ms and "
+          f"{kernels / steps:.1f} launches per step (bound of one step "
+          f"{beam_step_bound_ms(len(utts), dec):.6f} ms); wall "
+          f"{wall_ms:.4f} ms per call", flush=True)
+
+
+def beam_path(card, artifact, data, pcms):
+    """Phase 8: the flagship's beam search on the card. Returns the fbank
+    launches of its streamed windows and its device-frontend batch."""
+    conf = fx.beam_conf(str(data['beam_conf']))
+    (pred, build_s) = timed(lambda: PPASRPredictor(
+        model_path=artifact, use_gpu=True, use_device_frontend=True,
+        decoder='ctc_beam_search', decoder_configs=conf))
+    dec = pred._beam_decoder
+    print(f"  {type(dec).__name__} on {dec.device}: beam {dec.beam_size}, "
+          f"{dec.cutoff_top_n} candidates, hash LM of order "
+          f"{dec.lm_hash.order} from {data['beam_lm']}; predictor built and "
+          f"warmed up in {build_s:.2f} s", flush=True)
+    if not (dec.device.type == 'cuda' and dec.lm_hash is not None
+            and all(t.is_cuda for t in dec.tensors())):
+        raise AssertionError("the beam decoder's LM tables are not on the "
+                             "card")
+
+    dec.frames_decoded = 0
+    offline, walls = [], []
+    for pcm in pcms:
+        out, wall = timed(lambda p=pcm: pred.predict(p))
+        offline.append(out)
+        walls.append(wall)
+    off_frames = dec.frames_decoded
+
+    fbank_cuda.launches = 0
+    dec.frames_decoded = 0
+    stream, calls, t_stream = [], 0, 0.0
+    piece = int(data['piece'])
+    for pcm in pcms:
+        out, wall = timed(lambda p=pcm: fx.stream_result(pred, p, piece))
+        stream.append(out)
+        calls += -(-len(pcm) // piece)
+        t_stream += wall
+        if not all(t.is_cuda for t in dec.tensors()) or dec._state is None:
+            raise AssertionError("the streaming beam state is not on the "
+                                 "card")
+    stream_launches = fbank_cuda.launches
+    stream_frames = dec.frames_decoded
+    windows = sum(max(0, (len(p) - pred._win_samples)
+                      // pred._stride_samples + 1) for p in pcms)
+
+    fbank_cuda.launches = 0
+    dec.frames_decoded = 0
+    batch, t_batch = timed(lambda: pred.predict_batch(fx.batch_utts(pcms)))
+    batch_launches = fbank_cuda.launches
+    batch_frames = dec.frames_decoded
+
+    for t, o, st in zip(data['texts'], offline, stream):
+        print(f"  ref {t} | beam offline {o['text']} ({o['score']:.4f}) | "
+              f"beam stream {st['text']} ({st['score']:.4f})", flush=True)
+    print(f"  on {card}: wall per call: predict {statistics.mean(walls):.4f}"
+          f" s (each {[round(w, 4) for w in walls]}), predict_stream "
+          f"{t_stream / calls:.4f} s over {calls} calls, predict_batch "
+          f"{t_batch:.4f} s for 5 utterances; frames the scan decoded after "
+          f"compaction: {off_frames} offline, {stream_frames} streamed, "
+          f"{batch_frames} steps of the batch; fbank launches "
+          f"{stream_launches} for {windows} streamed windows and "
+          f"{batch_launches} for the batch", flush=True)
+    expect_beam('beam predict', offline, data, 'jax_beam_offline')
+    expect_beam('beam predict_stream', stream, data, 'jax_beam_stream')
+    expect_beam('beam predict_batch', batch, data, 'jax_beam_batch_device')
+    if windows == 0 or stream_launches != windows or batch_launches != 1:
+        raise AssertionError(f"fbank kernel launched {stream_launches} times "
+                             f"for {windows} streamed windows and "
+                             f"{batch_launches} for one batch")
+
+    native, t_native = timed(lambda: PPASRPredictor(
+        model_path=artifact, use_gpu=True, decoder='ctc_beam_search',
+        decoder_configs=dict(conf, backend='native')))
+    nat_out, nat_wall = timed(lambda: [native.predict(p) for p in pcms])
+    print(f"  native backend ({type(native._beam_decoder).__name__}, g++ "
+          f"build and warm-up {t_native:.2f} s): predict {nat_wall / 3:.4f} "
+          f"s per call", flush=True)
+    expect_beam('native predict', nat_out, data, 'jax_beam_native')
+
+    profile_batch_decode(card, pred, pcms)
+    return stream_launches + batch_launches
+
+
 def stream_eval_path(card, pred, data, pcms):
     """Phase 7: the batched streaming eval over the host features."""
     t0 = time.time()
@@ -559,6 +729,10 @@ def main():
     t0 = time.time()
     stream_eval_path(card, pred, data, pcms)
     phase('stream eval', t0)
+
+    t0 = time.time()
+    launches += beam_path(card, artifact, data, pcms)
+    phase('beam', t0)
 
     t0 = time.time()
     entry = time_kernel(shapes)

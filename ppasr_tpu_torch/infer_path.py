@@ -4,7 +4,10 @@ of the repository's infer_path.py, with --real_time_demo):
     python -m ppasr_tpu_torch.infer_path --wav_path a.wav \
         --model_path <exported dir> [--real_time_demo True]
 
-Runs on ``cuda:0`` unless ``--use_gpu False``. Long-audio mode,
+Runs on ``cuda:0`` unless ``--use_gpu False``. The decoder is the config's
+(``decoder``; beam search for configs/conformer.yml, configured by its
+``ctc_beam_search_decoder_conf``) unless ``--decoder`` names
+``ctc_greedy`` or ``ctc_beam_search``. Long-audio mode,
 punctuation and inverse text normalization are not ported yet: their
 options raise ``NotImplementedError`` (ROADMAP Queue A item 14).
 """
@@ -27,7 +30,8 @@ def parse_args(argv=None):
     add_arg('wav_path', str, 'dataset/test.wav', 'audio file to recognize')
     add_arg('model_path', str,
             'models/conformer_streaming_fbank/infer/', 'exported model dir')
-    add_arg('decoder', str, None, 'ctc_greedy (ctc_beam_search not ported)')
+    add_arg('decoder', str, None,
+            'ctc_greedy or ctc_beam_search (default: the config\'s)')
     add_arg('is_long_audio', bool, False, 'use VAD-segmented long-audio mode')
     add_arg('real_time_demo', bool, False, 'simulate streaming recognition')
     add_arg('use_gpu', bool, True, 'run on cuda:0 (False: the CPU)')

@@ -3,6 +3,7 @@ ppasr_tpu/models/conformer.py:29-204 for inference).
 
 ``streaming=True`` makes the encoder dynamic-chunk and causal (:52-55).
 Entry points: ``get_encoder_out`` (full context, :114-120),
+``get_encoder_logits`` (full context, CTC logits with no softmax, :128-136),
 ``get_encoder_out_chunk`` (one streaming step, :157-162) and ``init_state``
 (:172-190). The attention decoder and the training loss come with later
 work (ROADMAP Queue A, attention rescoring and training); their config
@@ -54,6 +55,13 @@ class ConformerModel(nn.Module):
         encoder_out, encoder_mask = self._encode_full(speech, speech_lens)
         probs = self.ctc.softmax(encoder_out)
         return probs, encoder_mask[:, 0, :].sum(dim=-1).to(torch.int32)
+
+    def get_encoder_logits(self, speech, speech_lens):
+        """Full-context CTC logits with no softmax → (logits [B, T', V],
+        out_lens [B]), for the beam search's softmax-free batch path."""
+        encoder_out, encoder_mask = self._encode_full(speech, speech_lens)
+        logits = self.ctc.logits(encoder_out)
+        return logits, encoder_mask[:, 0, :].sum(dim=-1).to(torch.int32)
 
     def get_ctc_log_probs(self, speech, speech_lens):
         encoder_out, encoder_mask = self._encode_full(speech, speech_lens)

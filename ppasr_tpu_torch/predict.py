@@ -2,20 +2,28 @@
 ppasr_tpu/predict.py:37-652 for the streaming Conformer's main path).
 
 - ``predict`` (:331-353): host fbank → padded 1-second bucket → full-context
-  encoder → greedy decode.
+  encoder → greedy or beam decode (``_decode_offline``, :324-327).
 - ``predict_batch`` (:355-431): the batch axis padded to a power of two, the
   time axis to ``time_bucket_frames``; the host frontend featurizes each
   utterance, the device frontend (``use_device_frontend=True``) pads the
   int16-scaled waveforms to a multiple of ``time_bucket_frames``·160
   samples and runs the fused fbank kernel once for the whole batch
   (``ops/fbank_cuda.fbank_batch``); one encoder pass; greedy decoding with
-  the argmax on the device; padding rows dropped.
+  the argmax on the device, or the beam search, which the on-device
+  backend runs from the CTC logits (``get_encoder_logits``, :401-416);
+  padding rows dropped.
 - ``predict_stream`` (:480-605): the host-feature path, and with
   ``use_device_frontend=True`` the device path, where each raw window of
   (decoding_window−1)·160 + 400 samples goes through the fused fbank kernel
   (``ops/fbank_cuda.fbank_window``, stride 160) on the model's device.
 - ``_run_chunk`` and the running-RMS gain offset (:607-652), including the
   host round trip of the features between the fbank and the encoder.
+- ``_init_decoder`` (:216-287) for ``decoder='ctc_beam_search'``, configured
+  by ``decoder_configs`` or the configs' ``ctc_beam_search_decoder_conf``:
+  ``backend`` ``'torch'`` (or ``'jax'``, the JAX package's name; the
+  default) runs ``decoders/beam_search_torch`` on the model's device,
+  ``'host'`` the numpy search and ``'native'`` the C++ one; an existing
+  ``.klm`` language model goes to ``'native'``.
 
 Differences from the JAX predictor, on purpose: the model runs on
 ``cuda:0`` unless ``use_gpu=False``, and there is no fallback.
@@ -23,9 +31,10 @@ Differences from the JAX predictor, on purpose: the model runs on
 point that runs the model holds ``ieee_float32()``, which turns TF32 off for
 matmuls and cuDNN while any caller is inside (the JAX package's
 ``Precision.HIGHEST``), whatever the process set. Without a card
-``use_gpu=True`` raises; warm-up errors propagate; the decoders that are
-not ported yet raise ``NotImplementedError``; a missing ``mean_istd.json``
-raises. ``predict_long``, punctuation and ITN come with the periphery
+``use_gpu=True`` raises; warm-up errors propagate; a beam decoder that
+fails to build raises (JAX falls back to greedy), and so does a language
+model that exists but fails to load; the decoders that are not ported yet
+raise ``NotImplementedError``; a missing ``mean_istd.json`` raises. ``predict_long``, punctuation and ITN come with the periphery
 (ROADMAP Queue A item 14).
 """
 import contextlib
@@ -41,9 +50,12 @@ from ppasr_tpu_torch.config import load_config
 from ppasr_tpu_torch.data.audio import AudioSegment
 from ppasr_tpu_torch.data.featurizer.audio_featurizer import AudioFeaturizer
 from ppasr_tpu_torch.data.featurizer.text_featurizer import TextFeaturizer
+from ppasr_tpu_torch.decoders.beam_search import BeamSearchDecoder
+from ppasr_tpu_torch.decoders.beam_search_torch import TorchBeamSearchDecoder
 from ppasr_tpu_torch.decoders.greedy import (GreedyStreamingDecoder,
                                              greedy_decoder,
                                              greedy_decoder_batch)
+from ppasr_tpu_torch.decoders.native import NativeBeamSearchDecoder
 from ppasr_tpu_torch.models.factory import build_model
 from ppasr_tpu_torch.ops.fbank_cuda import fbank_batch, fbank_window
 from ppasr_tpu_torch.utils.checkpoint import convert_params, load_msgpack
@@ -91,9 +103,9 @@ def _batch_bucket(n: int) -> int:
 
 
 _NOT_PORTED_DECODERS = {
-    'ctc_beam_search': "ROADMAP Queue A item 10, beam search",
     'attention_rescoring': "ROADMAP Queue A item 11, attention rescoring",
 }
+_DECODERS = ('ctc_greedy', 'ctc_beam_search')
 
 
 class PPASRPredictor:
@@ -149,15 +161,18 @@ class PPASRPredictor:
             mean_istd_path = mean_istd_path or dataset_conf.mean_istd_path
             self.decoder_name = decoder or self.configs.get('decoder',
                                                             'ctc_greedy')
+            self.decoder_configs = decoder_configs or dict(
+                self.configs.get('ctc_beam_search_decoder_conf', {}) or {})
         else:
             preprocess_conf = {'feature_method': 'fbank',
                                'n_mels': self.input_dim}
             self.decoder_name = decoder or 'ctc_greedy'
+            self.decoder_configs = decoder_configs or {}
         if self.decoder_name in _NOT_PORTED_DECODERS:
             raise NotImplementedError(
                 f"decoder {self.decoder_name!r} is not ported yet: "
                 f"{_NOT_PORTED_DECODERS[self.decoder_name]}")
-        if self.decoder_name != 'ctc_greedy':
+        if self.decoder_name not in _DECODERS:
             raise ValueError(f"unknown decoder {self.decoder_name!r}")
 
         self.audio_featurizer = AudioFeaturizer(**preprocess_conf,
@@ -207,8 +222,38 @@ class PPASRPredictor:
         self._win_samples = (self.decoding_window - 1) * 160 + 400
         self._stride_samples = self.stride * 160
 
+        self._init_decoder()
         self.reset_stream()
         self._warm_up()
+
+    def _init_decoder(self):
+        """The beam decoder of ``decoder='ctc_beam_search'`` (None for
+        greedy decoding), from ``decoder_configs``. Raises when it cannot be
+        built."""
+        self._beam_decoder = None
+        if self.decoder_name != 'ctc_beam_search':
+            return
+        conf = dict(self.decoder_configs)
+        backend = conf.pop('backend', 'torch')
+        lm = conf.get('language_model_path')
+        if backend in ('torch', 'jax') and lm and str(lm).endswith('.klm') \
+                and os.path.exists(lm):
+            # a .klm holds its n-grams as hashes, which the device tables
+            # cannot be built from; the native decoder reads the binary
+            logger.info(".klm language model: using the native beam-search "
+                        "backend")
+            backend = 'native'
+        if backend == 'host':
+            self._beam_decoder = BeamSearchDecoder(
+                vocab_list=self.vocab_list, **conf)
+        elif backend == 'native':
+            self._beam_decoder = NativeBeamSearchDecoder(
+                vocab_list=self.vocab_list, **conf)
+        elif backend in ('torch', 'jax'):
+            self._beam_decoder = TorchBeamSearchDecoder(
+                vocab_list=self.vocab_list, device=self.device, **conf)
+        else:
+            raise ValueError(f"unknown beam-search backend {backend!r}")
 
     def _warm_up(self):
         warm = np.random.default_rng(0).uniform(
@@ -259,8 +304,15 @@ class PPASRPredictor:
         probs, olens = self.model.get_encoder_out(
             torch.from_numpy(padded).to(self.device),
             torch.tensor([t], device=self.device))
-        score, text = greedy_decoder(probs[0].cpu().numpy()[:int(olens[0])],
-                                     self.vocab_list)
+        n = int(olens[0])
+        if isinstance(self._beam_decoder, TorchBeamSearchDecoder):
+            score, text = self._beam_decoder.decode(probs[0, :n])
+        elif self._beam_decoder is not None:
+            score, text = self._beam_decoder.decode(
+                probs[0, :n].cpu().numpy())
+        else:
+            score, text = greedy_decoder(probs[0].cpu().numpy()[:n],
+                                         self.vocab_list)
         return {'text': text, 'score': score}
 
     @torch.inference_mode()
@@ -269,7 +321,7 @@ class PPASRPredictor:
                       is_itn: bool = False, sample_rate: int = 16000):
         """Batched offline recognition: list of path / bytes / ndarray /
         AudioSegment → list of {'text', 'score'}, one padded encoder pass
-        and one batched greedy decode."""
+        and one batched decode."""
         if use_pun or is_itn:
             raise NotImplementedError("punctuation and ITN are not ported "
                                       "yet (ROADMAP Queue A item 14, "
@@ -299,9 +351,19 @@ class PPASRPredictor:
                 flens[i] = f.shape[0]
             batch = torch.from_numpy(padded).to(self.device)
             lens = torch.from_numpy(flens).to(self.device)
-        probs, olens = self.model.get_encoder_out(batch, lens)
-        results = greedy_decoder_batch(probs[:n], olens[:n].cpu().numpy(),
-                                       self.vocab_list)
+        if isinstance(self._beam_decoder, TorchBeamSearchDecoder):
+            # softmax-free: candidates straight from the CTC logits
+            logits, olens = self.model.get_encoder_logits(batch, lens)
+            results = self._beam_decoder.decode_batch_from_logits(
+                logits[:n], olens[:n])
+        elif self._beam_decoder is not None:
+            probs, olens = self.model.get_encoder_out(batch, lens)
+            results = self._beam_decoder.decode_batch(
+                probs[:n].cpu().numpy(), olens[:n].cpu().numpy())
+        else:
+            probs, olens = self.model.get_encoder_out(batch, lens)
+            results = greedy_decoder_batch(probs[:n], olens[:n].cpu().numpy(),
+                                           self.vocab_list)
         return [{'text': text, 'score': score} for score, text in results]
 
     def _waveform_batch(self, audio_list, sample_rate: int = 16000):
@@ -331,6 +393,13 @@ class PPASRPredictor:
         self._stream_sq_sum = 0.0
         self._stream_n = 0
         self._stream_decoder = GreedyStreamingDecoder(self.vocab_list)
+        if self._beam_decoder is not None:
+            self._beam_decoder.reset()
+
+    @property
+    def _chunk_decoder(self):
+        """The decoder that consumes each window's posteriors."""
+        return self._beam_decoder or self._stream_decoder
 
     @torch.inference_mode()
     @ieee_float32()
@@ -380,7 +449,7 @@ class PPASRPredictor:
                and self._cached_feat.shape[0] >= self.decoding_window):
             window = self._cached_feat[:self.decoding_window]
             self._cached_feat = self._cached_feat[self.stride:]
-            result_score, result_text = self._stream_decoder.decode_chunk(
+            result_score, result_text = self._chunk_decoder.decode_chunk(
                 self._run_chunk(window))
 
         if is_end and self._cached_feat is not None \
@@ -390,10 +459,10 @@ class PPASRPredictor:
             probs = self._run_chunk(window)
             if probs.shape[0] > 0:
                 result_score, result_text = \
-                    self._stream_decoder.decode_chunk(probs)
+                    self._chunk_decoder.decode_chunk(probs)
 
         if result_text is None:
-            result_score, result_text = self._stream_decoder.current()
+            result_score, result_text = self._chunk_decoder.current()
         return {'text': result_text or '', 'score': result_score or 0.0}
 
     def _device_featurize(self, window: np.ndarray) -> np.ndarray:
@@ -414,7 +483,7 @@ class PPASRPredictor:
             window = self._remained_wav[:self._win_samples]
             self._remained_wav = self._remained_wav[self._stride_samples:]
             probs = self._run_chunk(self._device_featurize(window))
-            result_score, result_text = self._stream_decoder.decode_chunk(
+            result_score, result_text = self._chunk_decoder.decode_chunk(
                 probs)
         if is_end and len(self._remained_wav) >= self.context * 160 + 240:
             # flush: host featurize of the short tail
@@ -425,9 +494,9 @@ class PPASRPredictor:
                 probs = self._run_chunk(feat)
                 if probs.shape[0] > 0:
                     result_score, result_text = \
-                        self._stream_decoder.decode_chunk(probs)
+                        self._chunk_decoder.decode_chunk(probs)
         if result_text is None:
-            result_score, result_text = self._stream_decoder.current()
+            result_score, result_text = self._chunk_decoder.current()
         return {'text': result_text or '', 'score': result_score or 0.0}
 
     def _stream_gain_offset(self) -> float:

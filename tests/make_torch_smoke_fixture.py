@@ -19,7 +19,16 @@ flagship checkpoint and greedy decoding:
 - ``jax_engine``: ``serving.StreamingBatchEngine(max_streams=4)`` fed by
   ``engine_texts`` (0.16 s pieces, interleaved, staggered);
 - ``jax_stream_eval``: ``models.streaming_eval.streaming_greedy_batch`` over
-  the three utterances' host features (``host_features``).
+  the three utterances' host features (``host_features``);
+- the flagship's beam search at its configured width (``beam_conf``: beam
+  300, ``cutoff_top_n`` 40, ``cutoff_prob`` 0.99, α 0.8, β 1.0 and the
+  trigram ``lm/synth_lm.arpa``, which the JAX decoder fuses through its hash
+  tables), each key with a ``*_scores`` array: ``jax_beam_offline``
+  (``predict``), ``jax_beam_stream`` (``predict_stream`` in 0.16 s pieces,
+  device frontend), ``jax_beam_batch_device`` (``predict_batch`` over
+  ``batch_utts``, device frontend) and ``jax_beam_native`` (``predict`` with
+  ``backend='native'``); ``beam_lm`` and ``beam_conf`` (JSON) store the LM's
+  path in the repository and the rest of the configuration.
 
     JAX_PLATFORMS=cpu python tests/make_torch_smoke_fixture.py
 """
@@ -35,6 +44,30 @@ OUT = os.path.join(ROOT, 'tests', 'fixtures', 'torch_smoke_utts.npz')
 SEED = 20240607
 N_UTTS = 3
 PIECE = 2560          # 0.16 s at 16 kHz
+# the flagship's beam search: configs/campaign/conformer_synth.yml
+# ctc_beam_search_decoder_conf, its trigram LM by its path in the repository
+BEAM_LM = 'lm/synth_lm.arpa'
+BEAM_CONF = dict(alpha=0.8, beta=1.0, beam_size=300, num_processes=2,
+                 cutoff_prob=0.99, cutoff_top_n=40)
+# |Δscore| of a flagship beam result against the fixture's JAX score: the
+# flagship's CTC log-prob tolerance (tests/test_torch_flagship.py)
+BEAM_SCORE_TOL = 1e-3
+
+
+def beam_conf(conf_json=None):
+    """The flagship's ``decoder_configs``: BEAM_CONF (or the JSON stored in
+    the fixture) with the LM's absolute path."""
+    conf = dict(BEAM_CONF) if conf_json is None else json.loads(conf_json)
+    conf['language_model_path'] = os.path.join(ROOT, BEAM_LM)
+    return conf
+
+
+def vocabulary():
+    """dataset/vocabulary.txt's tokens, its first tab-separated column, as
+    TextFeaturizer reads it."""
+    with open(os.path.join(ROOT, 'dataset', 'vocabulary.txt'),
+              encoding='utf-8') as f:
+        return [line.split('\t')[0] for line in f.read().splitlines()]
 
 
 def sentences(n=N_UTTS):
@@ -78,14 +111,19 @@ def flagship_artifact(out_dir):
         os.path.join(ROOT, 'dataset', 'mean_istd.json'))
 
 
-def stream_text(pred, pcm, piece=PIECE):
-    """Stream ``pcm`` through ``pred`` in pieces; the final text."""
+def stream_result(pred, pcm, piece=PIECE):
+    """Stream ``pcm`` through ``pred`` in pieces; the final result."""
     pred.reset_stream()
     out = None
     for i in range(0, len(pcm), piece):
         out = pred.predict_stream(pcm[i:i + piece],
                                   is_end=i + piece >= len(pcm))
-    return out['text']
+    return out
+
+
+def stream_text(pred, pcm, piece=PIECE):
+    """Stream ``pcm`` through ``pred`` in pieces; the final text."""
+    return stream_result(pred, pcm, piece)['text']
 
 
 def batch_utts(pcms):
@@ -161,18 +199,37 @@ def main():
         stream_eval = rows_to_texts(
             _collapse, *streaming_greedy_batch(pred.model, pred.params, x,
                                                lens), pred.vocab_list)
+        beam = {}
+        dev = PPASRPredictor(model_path=artifact, use_device_frontend=True,
+                             decoder='ctc_beam_search',
+                             decoder_configs=beam_conf())
+        beam['jax_beam_offline'] = [dev.predict(p) for p in pcms]
+        beam['jax_beam_stream'] = [stream_result(dev, p) for p in pcms]
+        beam['jax_beam_batch_device'] = dev.predict_batch(batch_utts(pcms))
+        nat = PPASRPredictor(model_path=artifact, decoder='ctc_beam_search',
+                             decoder_configs=dict(beam_conf(),
+                                                  backend='native'))
+        beam['jax_beam_native'] = [nat.predict(p) for p in pcms]
+    beam_keys = {}
+    for key, results in beam.items():
+        beam_keys[key] = np.array([r['text'] for r in results])
+        beam_keys[key + '_scores'] = np.array([r['score'] for r in results],
+                                              np.float32)
     np.savez_compressed(
         OUT, pcm=np.concatenate(pcms), lengths=np.array([len(p) for p in pcms]),
         texts=np.array(texts), jax_offline=np.array(offline),
         jax_stream=np.array(stream), seed=np.array(SEED),
         piece=np.array(PIECE), jax_batch=np.array(batch),
         jax_batch_device=np.array(batch_device), jax_engine=np.array(engine),
-        jax_stream_eval=np.array(stream_eval))
+        jax_stream_eval=np.array(stream_eval), beam_lm=np.array(BEAM_LM),
+        beam_conf=np.array(json.dumps(BEAM_CONF)), **beam_keys)
     print(OUT, os.path.getsize(OUT), 'bytes')
     for row in zip(texts, offline, stream, engine, stream_eval):
         print(*row)
     for b, d in zip(batch, batch_device):
         print(b, d)
+    for key, texts in beam_keys.items():
+        print(key, list(texts))
 
 
 if __name__ == '__main__':

@@ -7,7 +7,13 @@ fixture is reproducible).
 
 Transcripts must be identical to each other and to the JAX transcripts
 recorded in the fixture. CTC log-probs must agree within 1e-3: the two
-frameworks sum in other orders across 12 blocks of float32 matmuls."""
+frameworks sum in other orders across 12 blocks of float32 matmuls.
+
+At the flagship's beam conf (beam 300, cutoff_top_n 40, the trigram
+lm/synth_lm.arpa through the hash tables), the port's ``predict``,
+``predict_stream`` and device-frontend ``predict_batch``, and ``predict``
+with ``backend='native'``, give the fixture's JAX beam texts, with scores
+within ``BEAM_SCORE_TOL`` (1e-3, the log-prob tolerance)."""
 import os
 import sys
 
@@ -33,8 +39,13 @@ def fixture():
 
 
 @pytest.fixture(scope='module')
-def predictors(tmp_path_factory):
-    path = fx.flagship_artifact(str(tmp_path_factory.mktemp('flagship')))
+def artifact(tmp_path_factory):
+    return fx.flagship_artifact(str(tmp_path_factory.mktemp('flagship')))
+
+
+@pytest.fixture(scope='module')
+def predictors(artifact):
+    path = artifact
     jax_pred = JaxPredictor(model_path=path, use_device_frontend=True)
     port_pred = PPASRPredictor(model_path=path, use_gpu=False,
                                use_device_frontend=True)
@@ -82,3 +93,32 @@ def test_flagship_log_probs_agree(fixture, predictors):
         assert n == int(nt[0]) > 0
         diff = np.abs(np.asarray(lj)[0, :n] - lt.numpy()[0, :n])
         assert diff.max() <= LOGPROB_TOL, diff.max()
+
+
+def _expect(results, data, key):
+    assert [r['text'] for r in results] == [str(t) for t in data[key]], key
+    np.testing.assert_allclose([r['score'] for r in results],
+                               data[key + '_scores'], rtol=0,
+                               atol=fx.BEAM_SCORE_TOL, err_msg=key)
+
+
+def test_flagship_beam_search_matches_fixture(fixture, artifact):
+    data, pcms = fixture
+    assert str(data['beam_lm']) == fx.BEAM_LM
+    conf = fx.beam_conf(str(data['beam_conf']))
+    assert conf == fx.beam_conf()
+    pred = PPASRPredictor(model_path=artifact, use_gpu=False,
+                          use_device_frontend=True,
+                          decoder='ctc_beam_search', decoder_configs=conf)
+    dec = pred._beam_decoder
+    assert (dec.beam_size, dec.cutoff_top_n) == (300, 40)
+    assert dec.lm_hash is not None and dec.lm_hash.order == 3
+    _expect([pred.predict(p) for p in pcms], data, 'jax_beam_offline')
+    _expect([fx.stream_result(pred, p) for p in pcms], data,
+            'jax_beam_stream')
+    _expect(pred.predict_batch(fx.batch_utts(pcms)), data,
+            'jax_beam_batch_device')
+    native = PPASRPredictor(model_path=artifact, use_gpu=False,
+                            decoder='ctc_beam_search',
+                            decoder_configs=dict(conf, backend='native'))
+    _expect([native.predict(p) for p in pcms], data, 'jax_beam_native')

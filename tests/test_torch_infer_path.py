@@ -1,16 +1,21 @@
 """The port's CLI, ``python -m ppasr_tpu_torch.infer_path``, on the tiny
 artifact of tests/torch_tiny_artifact.py and a WAV file, on the CPU: its
 offline and simulated-streaming texts equal the JAX predictor's on the same
-file and config; the options not ported yet raise; ``strtobool`` parses
+file and config, with greedy decoding and with ``--decoder
+ctc_beam_search`` (configs/conformer.yml's beam conf: beam 300 and a .klm
+LM that is absent, so both decode without an LM, and the port names the
+file in a warning); the options not ported yet raise; ``strtobool`` parses
 ``bool`` options as ``distutils.util.strtobool`` did."""
 import os
 import sys
 
+import numpy as np
 import pytest
 
 from ppasr_tpu.data.audio import AudioSegment as JaxSegment
 from ppasr_tpu.predict import PPASRPredictor as JaxPredictor
 from ppasr_tpu_torch import infer_path
+from ppasr_tpu_torch.decoders import beam_search_torch
 from ppasr_tpu_torch.utils.common import strtobool
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -49,6 +54,21 @@ def test_real_time_demo_matches_jax(setup):
         want = jax_pred.predict_stream(samples[i:i + 8000],
                                        is_end=i + 8000 >= len(samples))
     assert got['text'] == want['text'] and len(want['text']) > 5
+
+
+def test_beam_search_cli_matches_jax(setup, monkeypatch):
+    args, wav, _ = setup
+    said = []
+    monkeypatch.setattr(beam_search_torch.logger, 'warning', said.append)
+    beam_args = [a if a != 'ctc_greedy' else 'ctc_beam_search' for a in args]
+    got = infer_path.main(beam_args)
+    jax_pred = JaxPredictor(configs=CONFIG, model_path=args[3],
+                            decoder='ctc_beam_search')
+    want = jax_pred.predict(wav)
+    assert got['text'] == want['text'] and len(want['text']) > 5
+    np.testing.assert_allclose(got['score'], want['score'], rtol=1e-5,
+                               atol=1e-4)
+    assert said and 'zh_giga.no_cna_cmn.prune01244.klm' in said[0]
 
 
 @pytest.mark.parametrize('option', ['is_long_audio', 'use_pun', 'is_itn'])

@@ -52,7 +52,11 @@ def test_import_leaves_no_forbidden_module_loaded():
     code = ("import sys, chip_smoke, ppasr_tpu_torch.predict, "
             "ppasr_tpu_torch.ops.fbank_cuda, ppasr_tpu_torch.serving, "
             "ppasr_tpu_torch.models.streaming_eval, "
-            "ppasr_tpu_torch.utils.metrics, ppasr_tpu_torch.infer_path;"
+            "ppasr_tpu_torch.utils.metrics, ppasr_tpu_torch.infer_path, "
+            "ppasr_tpu_torch.decoders.lm, ppasr_tpu_torch.decoders.klm, "
+            "ppasr_tpu_torch.decoders.beam_search, "
+            "ppasr_tpu_torch.decoders.native, "
+            "ppasr_tpu_torch.decoders.beam_search_torch;"
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,

@@ -3,22 +3,38 @@ tests/torch_tiny_artifact.py decoded by the JAX
 ``PPASRPredictor(use_device_frontend=True)`` (the Pallas fbank in interpret
 mode on the CPU) and by the port's (``use_gpu=False``, the plain fbank).
 Texts must be identical, offline and streamed in 0.16 s pieces. Also the
-precision context ``ieee_float32`` across threads."""
+precision context ``ieee_float32`` across threads.
+
+The beam-search cases (``decoder='ctc_beam_search'``) run both predictors
+with the same ``decoder_configs``, with and without a random trigram LM over
+the artifact's letters, on both frontends: texts identical, scores within
+1e-4 absolute plus 1e-5 relative. The host and native backends and the
+routing of a ``.klm`` LM to the native one are checked the same way."""
 import os
 import sys
 import threading
 
+import numpy as np
 import pytest
 import torch
 
 from ppasr_tpu.predict import PPASRPredictor as JaxPredictor
 from ppasr_tpu_torch import predict as port_predict
+from ppasr_tpu_torch.decoders.beam_search import BeamSearchDecoder
+from ppasr_tpu_torch.decoders.beam_search_torch import TorchBeamSearchDecoder
+from ppasr_tpu_torch.decoders.klm import write_klm_from_scorer
+from ppasr_tpu_torch.decoders.lm import NgramScorer
+from ppasr_tpu_torch.decoders.native import NativeBeamSearchDecoder
 from ppasr_tpu_torch.ops import fbank_cuda
 from ppasr_tpu_torch.predict import PPASRPredictor
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_tiny_artifact import CHARS, random_arpa  # noqa: E402
 from torch_tiny_artifact import speechlike as _speechlike  # noqa: E402
 from torch_tiny_artifact import write_artifact  # noqa: E402
+
+BEAM_CONF = dict(beam_size=24, cutoff_top_n=12, cutoff_prob=0.99, alpha=0.3,
+                 beta=1.5)
 
 
 @pytest.fixture(scope='module')
@@ -68,9 +84,82 @@ def test_host_frontend_stream_matches_jax(artifact):
 
 
 def test_unported_decoders_raise(artifact):
-    for name in ('ctc_beam_search', 'attention_rescoring'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            PPASRPredictor(model_path=artifact, use_gpu=False, decoder=name)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        PPASRPredictor(model_path=artifact, use_gpu=False,
+                       decoder='attention_rescoring')
+    with pytest.raises(ValueError, match='unknown decoder'):
+        PPASRPredictor(model_path=artifact, use_gpu=False, decoder='other')
+    with pytest.raises(ValueError, match='backend'):
+        PPASRPredictor(model_path=artifact, use_gpu=False,
+                       decoder='ctc_beam_search',
+                       decoder_configs={'backend': 'other'})
+
+
+@pytest.fixture(scope='module')
+def letters_lm(tmp_path_factory):
+    """A random trigram ARPA over the tiny artifact's tokens, and its
+    .klm."""
+    tmp = tmp_path_factory.mktemp('letters_lm')
+    arpa = random_arpa(tmp / 'letters.arpa', CHARS, order=3, seed=3,
+                       n_per_order=300)
+    klm = str(tmp / 'letters.klm')
+    write_klm_from_scorer(klm, NgramScorer(arpa, CHARS))
+    return arpa, klm
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _assert_same_results(got, want):
+    assert [r['text'] for r in got] == [r['text'] for r in want]
+    _close([r['score'] for r in got], [r['score'] for r in want])
+
+
+@pytest.mark.parametrize('use_lm', [False, True], ids=['no_lm', 'trigram'])
+@pytest.mark.parametrize('device', [False, True], ids=['host', 'device'])
+def test_beam_search_matches_jax(artifact, letters_lm, device, use_lm):
+    conf = dict(BEAM_CONF, language_model_path=letters_lm[0] if use_lm
+                else None)
+    jax_pred = JaxPredictor(model_path=artifact, use_device_frontend=device,
+                            decoder='ctc_beam_search', decoder_configs=conf)
+    port_pred = PPASRPredictor(model_path=artifact, use_gpu=False,
+                               use_device_frontend=device,
+                               decoder='ctc_beam_search',
+                               decoder_configs=conf)
+    dec = port_pred._beam_decoder
+    assert isinstance(dec, TorchBeamSearchDecoder)
+    assert dec.device == torch.device('cpu')
+    assert (dec.lm_hash is not None) == use_lm
+    for seed, seconds in ((1, 2.3), (6, 1.4)):
+        pcm = _speechlike(int(seconds * 16000), seed)
+        want, got = jax_pred.predict(pcm), port_pred.predict(pcm)
+        assert len(want['text']) > 10
+        _assert_same_results([got], [want])
+        _assert_same_results(_stream(port_pred, pcm), _stream(jax_pred, pcm))
+    port_pred.reset_stream()
+    assert dec._state is None and dec.current() == (0.0, '')
+
+
+@pytest.mark.parametrize('backend', ['host', 'native', 'klm'])
+def test_host_and_native_backends_match_jax(artifact, letters_lm, backend):
+    """``backend: 'host'`` and ``'native'`` with the ARPA LM, and a .klm LM
+    under the default backend, which goes to the native decoder."""
+    conf = dict(BEAM_CONF, language_model_path=letters_lm[0])
+    if backend == 'klm':
+        conf['language_model_path'] = letters_lm[1]
+    else:
+        conf['backend'] = backend
+    jax_pred = JaxPredictor(model_path=artifact, decoder='ctc_beam_search',
+                            decoder_configs=conf)
+    port_pred = PPASRPredictor(model_path=artifact, use_gpu=False,
+                               decoder='ctc_beam_search',
+                               decoder_configs=conf)
+    assert type(port_pred._beam_decoder) is (
+        BeamSearchDecoder if backend == 'host' else NativeBeamSearchDecoder)
+    pcm = _speechlike(int(1.9 * 16000), 7)
+    _assert_same_results([port_pred.predict(pcm)], [jax_pred.predict(pcm)])
+    _assert_same_results(_stream(port_pred, pcm), _stream(jax_pred, pcm))
 
 
 def test_missing_cmvn_raises(artifact, tmp_path):

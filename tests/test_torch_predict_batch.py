@@ -4,6 +4,9 @@ on both frontends. The host frontend featurizes each utterance with
 ``fbank_numpy``; the device frontend runs the batched fbank, ``fbank_jax``
 (XLA) in JAX and the plain ``fbank_batch_torch`` on the port's CPU path.
 Texts must be identical; scores within 1e-3 absolute (on the ×100 scale).
+With ``decoder='ctc_beam_search'`` (the port's on-device search from the
+CTC logits, ``get_encoder_logits``) and a random trigram LM: texts
+identical, log-prob scores within 1e-4 absolute plus 1e-5 relative.
 
 Also ``fbank_batch_torch`` against ``fbank_jax`` under the fbank tolerance
 of tests/test_torch_fbank.py (mean |Δ| < 1e-3, max < 0.05 log-mel), and the
@@ -18,13 +21,15 @@ import torch
 
 from ppasr_tpu.ops.fbank import fbank_jax
 from ppasr_tpu.predict import PPASRPredictor as JaxPredictor
+from ppasr_tpu_torch.decoders.beam_search_torch import TorchBeamSearchDecoder
 from ppasr_tpu_torch.ops import fbank as F
 from ppasr_tpu_torch.ops import fbank_cuda
 from ppasr_tpu_torch.predict import PPASRPredictor
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from make_torch_smoke_fixture import speechlike as speechlike_f32  # noqa
-from torch_tiny_artifact import speechlike, write_artifact  # noqa: E402
+from torch_tiny_artifact import (CHARS, random_arpa, speechlike,  # noqa
+                                 write_artifact)
 
 
 @pytest.fixture(scope='module')
@@ -57,6 +62,36 @@ def test_predict_batch_matches_jax(predictors, device, n):
     assert all(len(r['text']) > 3 for r in want)
     for g, w in zip(got, want):
         assert abs(g['score'] - w['score']) < 1e-3
+
+
+@pytest.mark.parametrize('device', [False, True], ids=['host', 'device'])
+def test_predict_batch_beam_search_matches_jax(tmp_path, device, monkeypatch):
+    artifact = write_artifact(tmp_path)
+    conf = dict(beam_size=24, cutoff_top_n=12, cutoff_prob=0.99, alpha=0.3,
+                beta=1.5, language_model_path=random_arpa(
+                    tmp_path / 'letters.arpa', CHARS, order=3, seed=3,
+                    n_per_order=300))
+    jax_pred = JaxPredictor(model_path=artifact, use_device_frontend=device,
+                            decoder='ctc_beam_search', decoder_configs=conf)
+    port_pred = PPASRPredictor(model_path=artifact, use_gpu=False,
+                               use_device_frontend=device,
+                               decoder='ctc_beam_search',
+                               decoder_configs=conf)
+    assert isinstance(port_pred._beam_decoder, TorchBeamSearchDecoder)
+    logits_calls = []
+    run = port_pred.model.get_encoder_logits
+    monkeypatch.setattr(port_pred.model, 'get_encoder_logits',
+                        lambda *a: logits_calls.append(1) or run(*a))
+    audio = _utterances(3, seed=7)
+    before = fbank_cuda.launches
+    got = port_pred.predict_batch(audio)
+    want = jax_pred.predict_batch(audio)
+    assert fbank_cuda.launches == before and logits_calls == [1]
+    assert [r['text'] for r in got] == [r['text'] for r in want]
+    assert all(len(r['text']) > 3 for r in want)
+    np.testing.assert_allclose([r['score'] for r in got],
+                               [r['score'] for r in want], rtol=1e-5,
+                               atol=1e-4)
 
 
 @pytest.mark.parametrize('device', [False, True], ids=['host', 'device'])

@@ -71,3 +71,34 @@ def write_artifact(out):
                    'encoder_conf': ENC, 'decoder_conf': DEC,
                    'model_conf': {'ctc_weight': 0.3}}, f, indent=2)
     return str(out)
+
+
+def random_arpa(path, vocab, order, seed, n_per_order=120, absent=0):
+    """Write a random well-formed ARPA file of ``order`` over the tokens
+    ``vocab`` (the last ``absent`` of them left out of the model, so they
+    score as unknown), with <s>, </s> and <unk> unigrams and backoff
+    weights below the highest order; returns ``path`` as a str."""
+    rng = np.random.default_rng(seed)
+    toks = list(vocab[:len(vocab) - absent])
+    grams = {1: [((t,), -rng.uniform(0.5, 4.0), -rng.uniform(0.1, 1.5))
+                 for t in toks + ['<s>', '</s>', '<unk>']]}
+    for n in range(2, order + 1):
+        seen, grams[n] = set(), []
+        for _ in range(n_per_order):
+            ng = tuple(rng.choice(toks, n))
+            if ng not in seen:
+                seen.add(ng)
+                grams[n].append((ng, -rng.uniform(0.1, 3.0),
+                                 -rng.uniform(0.01, 0.6)))
+    lines = ["\\data\\"] + [f"ngram {n}={len(grams[n])}"
+                            for n in range(1, order + 1)] + [""]
+    for n in range(1, order + 1):
+        lines.append(f"\\{n}-grams:")
+        for ng, p, b in grams[n]:
+            lines.append(f"{p:.6f}\t{' '.join(ng)}"
+                         + (f"\t{b:.6f}" if n < order else ""))
+        lines.append("")
+    lines.append("\\end\\")
+    with open(path, 'w', encoding='utf-8') as f:
+        f.write("\n".join(lines) + "\n")
+    return str(path)
