@@ -51,7 +51,28 @@ is not 0:
    call, the frames the scan decoded after compaction, and one
    ``torch.profiler`` session (CUDA activity only) over one batch decode:
    device time and launches per scan step;
-9. timing, after the paths, whose real-time factors are thus read
+9. rescore: ``decoder='attention_rescoring'`` at the beam conf of phase 8
+   (300 hypotheses of up to 200 tokens through the 3 + 3-block attention
+   decoder, ``reverse_weight`` 0.3) on ``cuda:0`` with the device
+   frontend: ``predict`` on the three utterances, ``predict_batch`` on the
+   five, ``predict_stream`` in 0.16 s pieces and the engine over the three
+   staggered streams; texts must equal the fixture's JAX rescoring texts
+   and scores agree within ``BEAM_SCORE_TOL``; wall time per call, and one
+   ``torch.profiler`` session (CUDA activity only) over one rescoring pass
+   and one over the decoder's scores alone: device time and launches;
+10. bf16: ``compute_dtype='bfloat16'`` with greedy decoding on the device
+   frontend through ``predict``, ``predict_batch``, ``predict_stream`` and
+   the engine; texts must equal the fixture's JAX bf16 texts or differ
+   only at near ties (``fx.near_tie_failures``: every frame whose argmax
+   differs has a JAX top-2 margin below ``fx.BF16_LOGIT_TOL``); the
+   largest |Δ| of its CTC log-probs against the float32 predictor's, and
+   each entry point's wall per call beside the float32 path's;
+11. long: ``predict_long`` (Silero VAD on the card, segments through
+   ``predict_batch``) on the three utterances with 0.5 s of quiet noise
+   between them (``fx.long_recording``), without and with punctuation and
+   ITN; the VAD's timestamps and both texts must equal the fixture's JAX
+   ones, the Silero LSTM and the punctuation model must be on the card;
+12. timing, after the paths, whose real-time factors are thus read
    before the process first runs the profiler: at each shape of phase 3,
    three rounds time in turn the kernel, the plain version,
    ``torch.fft.rfft`` alone on the same frames, and the kernel again, each
@@ -59,8 +80,9 @@ is not 0:
    included) and the kernel and ``rfft`` also on the device alone
    (``device_ms``, from ``torch.profiler`` recording CUDA activity only);
    and the bound. The kernel table's ``ms`` is ``call_ms`` at the window,
-   its ``launches`` the launches of phases 4, 5 and 8, and its
-   ``max_abs_err`` the largest of phases 3 and 5.
+   its ``launches`` the launches of phases 4, 5 and 8–11 (one per streamed
+   window, one per batch), and its ``max_abs_err`` the largest of phases 3
+   and 5.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the one before it the kernel table as JSON; the last line is
@@ -77,6 +99,9 @@ import time
 import numpy as np
 import torch
 
+import ppasr_tpu_torch.decoders.greedy as greedy_module
+import ppasr_tpu_torch.predict as predict_module
+from ppasr_tpu_torch.decoders.beam_search_torch import all_hypotheses
 from ppasr_tpu_torch.decoders.greedy import _collapse
 from ppasr_tpu_torch.models.streaming_eval import streaming_greedy_batch
 from ppasr_tpu_torch.ops import fbank as F
@@ -309,7 +334,7 @@ def check_kernel(dev):
 
 
 def time_kernel(shapes):
-    """Phase 9: the timings of every shape of phase 3, beside its bound;
+    """Phase 12: the timings of every shape of phase 3, beside its bound;
     returns the table entry."""
     rows = []
     for case in shapes:
@@ -662,6 +687,223 @@ def beam_path(card, artifact, data, pcms):
     return stream_launches + batch_launches
 
 
+def profile_ms(fn):
+    """(device milliseconds, kernel launches) of one call of ``fn()``: one
+    torch.profiler session recording CUDA activity only, after a warm-up
+    call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total_us, launches = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            total_us += evt.self_device_time_total
+            launches += evt.count
+    if total_us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total_us / 1e3, launches
+
+
+def stream_windows(pred, pcms):
+    return sum(max(0, (len(p) - pred._win_samples) // pred._stride_samples
+                   + 1) for p in pcms)
+
+
+def rescore_path(card, artifact, data, pcms):
+    """Phase 9: attention rescoring at the flagship's beam conf on the card
+    through predict, predict_batch, predict_stream (device frontend) and
+    the engine; texts equal to the fixture's JAX rescoring texts, scores
+    within BEAM_SCORE_TOL. Returns the fbank launches of its streamed
+    windows and its batch."""
+    conf = fx.beam_conf(str(data['beam_conf']))
+    pred, build_s = timed(lambda: PPASRPredictor(
+        model_path=artifact, use_gpu=True, use_device_frontend=True,
+        decoder='attention_rescoring', decoder_configs=conf))
+    res = pred._rescorer
+    if not (res.device.type == 'cuda' and all(
+            p.is_cuda for p in pred.model.decoder.parameters())
+            and all(t.is_cuda for t in res.beam.tensors())):
+        raise AssertionError("the rescorer or its decoder is not on the "
+                             "card")
+    print(f"  rescorer on {res.device}: beam {res.beam.beam_size}, "
+          f"{res.max_hyp_len}-token hypotheses, ctc_weight "
+          f"{res.ctc_weight}, reverse_weight {pred.model.reverse_weight}; "
+          f"predictor built and warmed up in {build_s:.2f} s", flush=True)
+
+    offline, walls = [], []
+    for pcm in pcms:
+        out, wall = timed(lambda p=pcm: pred.predict(p))
+        offline.append(out)
+        walls.append(wall)
+    fbank_cuda.launches = 0
+    batch, t_batch = timed(lambda: pred.predict_batch(fx.batch_utts(pcms)))
+    batch_launches = fbank_cuda.launches
+    fbank_cuda.launches = 0
+    stream, t_stream = timed(lambda: [fx.stream_result(pred, p)
+                                      for p in pcms])
+    stream_launches = fbank_cuda.launches
+    calls = sum(-(-len(p) // int(data['piece'])) for p in pcms)
+    engine, t_engine = timed(lambda: fx.engine_results(
+        StreamingBatchEngine(pred, max_streams=4), pcms))
+    windows = stream_windows(pred, pcms)
+    for r in offline + batch + stream + engine:
+        print(f"  {r['text']} ({r['score']:.4f})", flush=True)
+    print(f"  on {card}: wall per call: predict {statistics.mean(walls):.4f}"
+          f" s (each {[round(w, 4) for w in walls]}), predict_batch "
+          f"{t_batch:.4f} s for 5 utterances, predict_stream "
+          f"{t_stream / calls:.4f} s over {calls} calls, the engine "
+          f"{t_engine:.4f} s for 3 streams; fbank launches "
+          f"{stream_launches} for {windows} streamed windows and "
+          f"{batch_launches} for the batch", flush=True)
+    expect_beam('rescore predict', offline, data, 'jax_rescore_offline')
+    expect_beam('rescore predict_batch', batch, data,
+                'jax_rescore_batch_device')
+    expect_beam('rescore predict_stream', stream, data,
+                'jax_rescore_stream')
+    expect_beam('rescore engine', engine, data, 'jax_rescore_engine')
+    if windows == 0 or stream_launches != windows or batch_launches != 1:
+        raise AssertionError(f"fbank kernel launched {stream_launches} times "
+                             f"for {windows} streamed windows and "
+                             f"{batch_launches} for one batch")
+
+    # one rescoring pass of the first utterance: the whole pass (beam and
+    # decoder) and the decoder's scores alone
+    x, lens = fx.host_features(pred, pcms[:1])
+    with torch.inference_mode(), ieee_float32():
+        enc, probs, olens = pred.model.encode_for_rescore(
+            torch.from_numpy(x).to(pred.device),
+            torch.from_numpy(lens).to(pred.device))
+        hyps, hyp_lens, _ = all_hypotheses(
+            res.beam.decode_batch_states(probs, olens), res.max_hyp_len)
+        whole = lambda: res.decode_batch_rescore(enc, probs, olens)  # noqa
+        dec = lambda: pred.model.attention_rescore_scores(  # noqa: E731
+            enc, olens, hyps, hyp_lens)
+        whole_ms, whole_n = profile_ms(whole)
+        dec_ms, dec_n = profile_ms(dec)
+        whole_wall, dec_wall = call_ms(whole, 5, 1), call_ms(dec, 5, 1)
+    print(f"  on {card}: one rescoring pass over {list(hyps.shape)} "
+          f"hypotheses and {list(enc.shape)} encoder frames: "
+          f"{whole_ms:.4f} ms on the device in {whole_n} launches, "
+          f"{whole_wall:.4f} ms per call; the decoder's scores alone "
+          f"{dec_ms:.4f} ms on the device in {dec_n} launches, "
+          f"{dec_wall:.4f} ms per call", flush=True)
+    return stream_launches + batch_launches
+
+
+def bf16_path(card, artifact, data, pcms, pred32):
+    """Phase 10: compute_dtype='bfloat16' with greedy decoding on the
+    device frontend through predict, predict_batch, predict_stream and the
+    engine: texts equal to the fixture's JAX bf16 texts under the near-tie
+    rule; the CTC log-probs beside the float32 predictor's; wall per call
+    beside the float32 path's. Returns the fbank launches of its streamed
+    windows and its batch."""
+    pred, build_s = timed(lambda: PPASRPredictor(
+        model_path=artifact, use_gpu=True, use_device_frontend=True,
+        compute_dtype='bfloat16'))
+    enc = pred.model.encoder
+    if not (enc.dtype == torch.bfloat16 and enc.embed.Dense_0.weight.is_cuda
+            and enc.after_norm.weight.dtype == torch.float32):
+        raise AssertionError("the bf16 model's weights are not bf16 on the "
+                             "card")
+    print(f"  bf16 predictor built and warmed up in {build_s:.2f} s",
+          flush=True)
+    runs = {
+        'offline': lambda p: [p.predict(u)['text'] for u in pcms],
+        'batch_device': lambda p: [r['text'] for r in p.predict_batch(
+            fx.batch_utts(pcms))],
+        'stream': lambda p: [fx.stream_text(p, u) for u in pcms],
+        'engine': lambda p: fx.engine_texts(StreamingBatchEngine(
+            p, max_streams=4), pcms),
+    }
+    calls = {'offline': 3, 'batch_device': 1, 'engine': 3,
+             'stream': sum(-(-len(u) // int(data['piece'])) for u in pcms)}
+    launches = {}
+    for name, run in runs.items():
+        key = f'jax_bf16_{name}'
+        fbank_cuda.launches = 0
+        with fx.PosteriorRecorder(predict_module, greedy_module) as rec:
+            texts, wall = timed(lambda: run(pred))
+        launches[name] = fbank_cuda.launches
+        _, wall32 = timed(lambda: run(pred32))
+        bad = fx.near_tie_failures(
+            texts, [str(t) for t in data[key]], [u[0] for u in rec.utts],
+            data[key + '_ids'], data[key + '_margins'], data[key + '_frames'])
+        how = 'equal to' if texts == [str(t) for t in data[key]] \
+            else 'within the near-tie rule of'
+        print(f"  bf16 {name}: {texts}, {how} {key}; wall per call "
+              f"{wall / calls[name]:.4f} s in bf16, "
+              f"{wall32 / calls[name]:.4f} s in float32", flush=True)
+        if bad:
+            raise AssertionError(f"bf16 {name} texts differ from JAX's "
+                                 f"beyond near ties: {bad}")
+    windows = stream_windows(pred, pcms)
+    if launches['stream'] != windows or launches['batch_device'] != 1:
+        raise AssertionError(f"fbank kernel launched {launches} times for "
+                             f"{windows} streamed windows and one batch")
+
+    x, lens = fx.host_features(pred, pcms)
+    with torch.inference_mode(), ieee_float32():
+        args = (torch.from_numpy(x).to(pred.device),
+                torch.from_numpy(lens).to(pred.device))
+        lp16, olens = pred.model.get_ctc_log_probs(*args)
+        lp32, _ = pred32.model.get_ctc_log_probs(*args)
+    valid = torch.arange(lp16.shape[1], device=pred.device)[None, :] \
+        < olens[:, None]
+    d = (lp16 - lp32).abs()[valid]
+    print(f"  on {card}: bf16 CTC log-probs against the port's float32 on "
+          f"the card: max |Δ| {d.max().item():.4f}, mean "
+          f"{d.mean().item():.4f} over {int(valid.sum())} frames",
+          flush=True)
+    if not (torch.isfinite(lp16).all() and lp16.dtype == torch.float32):
+        raise AssertionError("bf16 CTC log-probs are not finite float32")
+    return launches['stream'] + launches['batch_device']
+
+
+def long_path(card, pred, data, pcms):
+    """Phase 11: predict_long on the three utterances with quiet between
+    them, the float32 device-frontend predictor, without and with
+    punctuation and ITN; the VAD's timestamps and the texts equal the
+    fixture's JAX ones; the Silero LSTM and the punctuation model on the
+    card. Returns the fbank launches (one per batch)."""
+    wav = fx.long_recording(pcms)
+    fbank_cuda.launches = 0
+    plain, t_plain = timed(lambda: pred.predict_long(wav))
+    marked, t_marked = timed(lambda: pred.predict_long(wav, use_pun=True,
+                                                       is_itn=True))
+    launches = fbank_cuda.launches
+    stamps = pred._vad.get_speech_timestamps(wav.astype(np.float32)
+                                             / 32768.0)
+    net = pred._vad.model.net
+    vad_on_card = all(t.is_cuda for t in list(net.parameters())
+                      + list(net.buffers()))
+    pun_on_card = all(p.is_cuda for p in
+                      pred._pun_predictor.model.parameters())
+    print(f"  VAD segments {[[s['start'], s['end']] for s in stamps]} of "
+          f"{len(wav)} samples; text {plain['text']} "
+          f"({plain['score']:.4f}); with punctuation and ITN "
+          f"{marked['text']}", flush=True)
+    print(f"  on {card}: wall {t_plain:.4f} s, {t_marked:.4f} s with "
+          f"punctuation and ITN, for {len(wav) / 16000:.3f} s of audio; "
+          f"Silero LSTM on the card {vad_on_card}, punctuation model on the "
+          f"card {pun_on_card}; fbank launches {launches}", flush=True)
+    if [[s['start'], s['end']] for s in stamps] != \
+            data['jax_long_vad'].tolist():
+        raise AssertionError(f"VAD timestamps differ from JAX's: {stamps}")
+    for key, got in (('jax_long', plain), ('jax_long_pun_itn', marked)):
+        if got['text'] != str(data[key]) or abs(
+                got['score'] - float(data[key + '_score'])) > 1e-3:
+            raise AssertionError(f"predict_long {got} differs from JAX's "
+                                 f"{data[key]}")
+    if not (vad_on_card and pun_on_card and launches == 2):
+        raise AssertionError(f"VAD on the card {vad_on_card}, punctuation "
+                             f"model {pun_on_card}, fbank launches "
+                             f"{launches} for two batches")
+    return launches
+
+
 def stream_eval_path(card, pred, data, pcms):
     """Phase 7: the batched streaming eval over the host features."""
     t0 = time.time()
@@ -733,6 +975,18 @@ def main():
     t0 = time.time()
     launches += beam_path(card, artifact, data, pcms)
     phase('beam', t0)
+
+    t0 = time.time()
+    launches += rescore_path(card, artifact, data, pcms)
+    phase('rescore', t0)
+
+    t0 = time.time()
+    launches += bf16_path(card, artifact, data, pcms, pred)
+    phase('bf16', t0)
+
+    t0 = time.time()
+    launches += long_path(card, pred, data, pcms)
+    phase('long', t0)
 
     t0 = time.time()
     entry = time_kernel(shapes)

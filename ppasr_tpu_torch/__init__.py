@@ -6,11 +6,13 @@ anything of ``ppasr_tpu`` (whose ``__init__`` imports JAX). Code it shares
 with the JAX package is copied here. Entry points run on the card
 (``cuda:0``) unless the caller asks for the CPU.
 
-Ported so far: the streaming Conformer predictor (config and checkpoint
-readers, host and device fbank with the hand-written CUDA kernel in
-``csrc/fbank.cu``, the Conformer encoder with CTC head, greedy decoding),
-offline, batched (``predict_batch``) and streaming; the multi-stream
-engine (``serving``), the batched streaming eval
+Ported so far: the Conformer predictor (config and checkpoint readers,
+host and device fbank with the hand-written CUDA kernel in
+``csrc/fbank.cu``, the encoder with its CTC head and attention decoder;
+greedy, beam-search and attention-rescoring decoding; float32 or bfloat16
+compute), offline, batched (``predict_batch``), long-audio through Silero
+VAD (``predict_long``) and streaming, with punctuation and ITN; the
+multi-stream engine (``serving``), the batched streaming eval
 (``models/streaming_eval``), CER and WER (``utils/metrics``) and the CLI
 ``python -m ppasr_tpu_torch.infer_path``. See ROADMAP.md for what is still
 to come.

@@ -1,15 +1,14 @@
-"""Recognize an audio file, offline or as a simulated stream (counterpart
-of the repository's infer_path.py, with --real_time_demo):
+"""Recognize an audio file: offline, long-audio (VAD-segmented) or as a
+simulated stream (counterpart of the repository's infer_path.py):
 
     python -m ppasr_tpu_torch.infer_path --wav_path a.wav \
-        --model_path <exported dir> [--real_time_demo True]
+        --model_path <exported dir> [--real_time_demo True] \
+        [--is_long_audio True] [--use_pun True] [--is_itn True]
 
 Runs on ``cuda:0`` unless ``--use_gpu False``. The decoder is the config's
 (``decoder``; beam search for configs/conformer.yml, configured by its
 ``ctc_beam_search_decoder_conf``) unless ``--decoder`` names
-``ctc_greedy`` or ``ctc_beam_search``. Long-audio mode,
-punctuation and inverse text normalization are not ported yet: their
-options raise ``NotImplementedError`` (ROADMAP Queue A item 14).
+``ctc_greedy``, ``ctc_beam_search`` or ``attention_rescoring``.
 """
 import argparse
 import functools
@@ -31,7 +30,8 @@ def parse_args(argv=None):
     add_arg('model_path', str,
             'models/conformer_streaming_fbank/infer/', 'exported model dir')
     add_arg('decoder', str, None,
-            'ctc_greedy or ctc_beam_search (default: the config\'s)')
+            'ctc_greedy, ctc_beam_search or attention_rescoring (default: '
+            'the config\'s)')
     add_arg('is_long_audio', bool, False, 'use VAD-segmented long-audio mode')
     add_arg('real_time_demo', bool, False, 'simulate streaming recognition')
     add_arg('use_gpu', bool, True, 'run on cuda:0 (False: the CPU)')
@@ -42,15 +42,24 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def predict_audio(predictor, wav_path):
+def predict_audio(predictor, wav_path, use_pun=False, is_itn=False):
     start = time.time()
-    result = predictor.predict(wav_path)
+    result = predictor.predict(wav_path, use_pun=use_pun, is_itn=is_itn)
     logger.info(f"time: {int((time.time() - start) * 1000)}ms, "
                 f"score: {result['score']:.2f}, text: {result['text']}")
     return result
 
 
-def real_time_predict_demo(predictor, wav_path):
+def predict_long_audio(predictor, wav_path, use_pun=False, is_itn=False):
+    start = time.time()
+    result = predictor.predict_long(wav_path, use_pun=use_pun, is_itn=is_itn)
+    logger.info(f"long audio time: {int((time.time() - start) * 1000)}ms, "
+                f"score: {result['score']:.2f}, text: {result['text']}")
+    return result
+
+
+def real_time_predict_demo(predictor, wav_path, use_pun=False,
+                           is_itn=False):
     """Feed the file in 0.5 s pieces as a live stream would."""
     audio = AudioSegment.from_file(wav_path)
     samples = audio.samples
@@ -61,7 +70,8 @@ def real_time_predict_demo(predictor, wav_path):
         is_end = i + chunk >= len(samples)
         start = time.time()
         result = predictor.predict_stream(samples[i:i + chunk],
-                                          is_end=is_end, sample_rate=sr)
+                                          is_end=is_end, use_pun=use_pun,
+                                          is_itn=is_itn, sample_rate=sr)
         logger.info(f"[{i / sr:5.1f}s] {int((time.time() - start) * 1000)}ms"
                     f" → {result['text']}")
     predictor.reset_stream()
@@ -71,18 +81,17 @@ def real_time_predict_demo(predictor, wav_path):
 def main(argv=None):
     args = parse_args(argv)
     print_arguments(args=args)
-    for name in ('is_long_audio', 'use_pun', 'is_itn'):
-        if getattr(args, name):
-            raise NotImplementedError(
-                f"--{name} is not ported yet (ROADMAP Queue A item 14, "
-                f"periphery)")
     predictor = PPASRPredictor(configs=args.configs,
                                model_path=args.model_path,
                                use_gpu=args.use_gpu, decoder=args.decoder,
+                               use_pun=args.use_pun,
                                use_device_frontend=args.use_device_frontend)
+    text_opts = dict(use_pun=args.use_pun, is_itn=args.is_itn)
     if args.real_time_demo:
-        return real_time_predict_demo(predictor, args.wav_path)
-    return predict_audio(predictor, args.wav_path)
+        return real_time_predict_demo(predictor, args.wav_path, **text_opts)
+    if args.is_long_audio:
+        return predict_long_audio(predictor, args.wav_path, **text_opts)
+    return predict_audio(predictor, args.wav_path, **text_opts)
 
 
 if __name__ == "__main__":

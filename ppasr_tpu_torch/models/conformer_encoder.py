@@ -12,6 +12,14 @@
   the positional rows of key slot j are those of position offset − C + j,
   read from the table left-padded by C zero rows.
 
+Compute dtype (``models/base.cast_for_compute``): the features enter in
+float32, go through the CMVN in float32 and are cast to the weights' dtype
+at the subsampling input, where the JAX model's first cast is (its
+``GlobalCMVN`` computes in the input's dtype, its ``Conv`` casts). The
+positional table is cast with the weights (:237-238), the ×sqrt(d) scale
+is rounded to the dtype (:251), and the streaming caches are zeroed in the
+dtype (:302-315).
+
 Dropout and the training-only options (``remat``, depth-scaled init) are
 accepted for config compatibility and have no effect at inference.
 """
@@ -22,7 +30,9 @@ import torch
 from torch import nn
 
 from ppasr_tpu_torch.models.attention import MultiHeadedAttention
-from ppasr_tpu_torch.models.base import GlobalCMVN, get_activation, swish
+from ppasr_tpu_torch.models.base import (GlobalCMVN, LayerNorm,
+                                         dtype_scalar, get_activation,
+                                         swish)
 from ppasr_tpu_torch.models.convolution import ConvolutionModule
 from ppasr_tpu_torch.models.embedding import sinusoid_table
 from ppasr_tpu_torch.models.positionwise import PositionwiseFeedForward
@@ -51,7 +61,7 @@ class ConformerEncoderLayer(nn.Module):
         self.macaron_style = macaron_style
         self.use_cnn_module = use_cnn_module
         self.final_norm = final_norm and use_cnn_module
-        ln = lambda: nn.LayerNorm(size, eps=1e-5)  # noqa: E731
+        ln = lambda: LayerNorm(size, eps=1e-5)  # noqa: E731
         if macaron_style:
             self.norm_ff_macaron = ln()
             self.feed_forward_macaron = PositionwiseFeedForward(
@@ -145,21 +155,26 @@ class ConformerEncoder(nn.Module):
             causal, activation, pos_enc_layer_type == 'rel_pos',
             block_final_norm) for _ in range(num_blocks)])
         if normalize_before:
-            self.after_norm = nn.LayerNorm(output_size, eps=1e-5)
+            self.after_norm = LayerNorm(output_size, eps=1e-5)
         self.register_buffer(
             'pe', torch.from_numpy(sinusoid_table(output_size, max_len)),
             persistent=False)
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype: that of the weights."""
+        return self.embed.Dense_0.weight.dtype
+
     def _embed(self, xs):
         if self.global_cmvn is not None:
             xs = self.global_cmvn(xs)
-        return self.embed(xs)
+        return self.embed(xs.to(self.dtype))
 
     def _apply_pos(self, xs, pos_emb):
         if self.pos_enc_layer_type == 'no_pos':
             return xs, None
         if self.pos_enc_layer_type == 'abs_pos':
-            xs = xs * float(np.sqrt(self.output_size))
+            xs = xs * dtype_scalar(np.sqrt(self.output_size), xs.dtype)
             xs = xs + pos_emb[:, -xs.shape[1]:]
         return xs, pos_emb       # rel_pos: no ×sqrt(d) (JAX :230-245)
 
@@ -189,7 +204,8 @@ class ConformerEncoder(nn.Module):
         """Zero streaming state with static attention cache size C."""
         h, dk = self.attention_heads, self.output_size // self.attention_heads
         device = device if device is not None else self.pe.device
-        z = lambda *s: torch.zeros(s, device=device)  # noqa: E731
+        z = lambda *s: torch.zeros(s, device=device,  # noqa: E731
+                                   dtype=self.dtype)
         return StreamingState(
             offset=torch.zeros(batch_size, dtype=torch.int32, device=device),
             cache_len=torch.zeros(batch_size, dtype=torch.int32,

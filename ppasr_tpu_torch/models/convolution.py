@@ -14,7 +14,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ppasr_tpu_torch.models.base import swish
+from ppasr_tpu_torch.models.base import LayerNorm, swish
 
 
 class ConvolutionModule(nn.Module):
@@ -33,7 +33,7 @@ class ConvolutionModule(nn.Module):
         self.pointwise_conv1 = nn.Linear(channels, 2 * channels)
         self.depthwise_conv = nn.Conv1d(channels, channels, kernel_size,
                                         groups=channels)
-        self.norm = nn.LayerNorm(channels, eps=1e-5)
+        self.norm = LayerNorm(channels, eps=1e-5)
         self.pointwise_conv2 = nn.Linear(channels, channels)
 
     def forward(self, x, mask_pad=None, cache=None):

@@ -20,6 +20,13 @@ def make_non_pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     return ~make_pad_mask(lengths, max_len)
 
 
+def subsequent_mask(size: int, device=None) -> torch.Tensor:
+    """[size, size] lower-triangular causal mask (ppasr_tpu/ops/masks.py:
+    36-40)."""
+    i = torch.arange(size, device=device)
+    return i[:, None] >= i[None, :]
+
+
 def subsequent_chunk_mask(size: int, chunk_size: int,
                           num_left_chunks: int = -1,
                           device=None) -> torch.Tensor:

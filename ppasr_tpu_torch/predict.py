@@ -1,8 +1,8 @@
-"""Inference runtime: offline, batched and streaming (counterpart of
-ppasr_tpu/predict.py:37-652 for the streaming Conformer's main path).
+"""Inference runtime: offline, batched, long-audio and streaming
+(counterpart of ppasr_tpu/predict.py:37-688 for the Conformer).
 
 - ``predict`` (:331-353): host fbank → padded 1-second bucket → full-context
-  encoder → greedy or beam decode (``_decode_offline``, :324-327).
+  encoder → greedy, beam or rescoring decode.
 - ``predict_batch`` (:355-431): the batch axis padded to a power of two, the
   time axis to ``time_bucket_frames``; the host frontend featurizes each
   utterance, the device frontend (``use_device_frontend=True``) pads the
@@ -10,32 +10,54 @@ ppasr_tpu/predict.py:37-652 for the streaming Conformer's main path).
   samples and runs the fused fbank kernel once for the whole batch
   (``ops/fbank_cuda.fbank_batch``); one encoder pass; greedy decoding with
   the argmax on the device, or the beam search, which the on-device
-  backend runs from the CTC logits (``get_encoder_logits``, :401-416);
-  padding rows dropped.
+  backend runs from the CTC logits (``get_encoder_logits``, :401-416), or
+  attention rescoring; padding rows dropped.
+- ``predict_long`` (:433-462): Silero VAD segments (``infer_utils/
+  vad_predictor``) through ``predict_batch`` in groups of at most 32,
+  joined with ``，``.
 - ``predict_stream`` (:480-605): the host-feature path, and with
   ``use_device_frontend=True`` the device path, where each raw window of
   (decoding_window−1)·160 + 400 samples goes through the fused fbank kernel
   (``ops/fbank_cuda.fbank_window``, stride 160) on the model's device.
+  With attention rescoring, the partial results are greedy and the final
+  one (``is_end``) is a rescoring pass over the encoder outputs and
+  posteriors the chunk steps kept on the device (:641-661).
 - ``_run_chunk`` and the running-RMS gain offset (:607-652), including the
   host round trip of the features between the fbank and the encoder.
-- ``_init_decoder`` (:216-287) for ``decoder='ctc_beam_search'``, configured
+- ``_init_decoder`` (:216-287): ``decoder='ctc_beam_search'``, configured
   by ``decoder_configs`` or the configs' ``ctc_beam_search_decoder_conf``:
   ``backend`` ``'torch'`` (or ``'jax'``, the JAX package's name; the
   default) runs ``decoders/beam_search_torch`` on the model's device,
   ``'host'`` the numpy search and ``'native'`` the C++ one; an existing
-  ``.klm`` language model goes to ``'native'``.
+  ``.klm`` language model goes to ``'native'``. ``decoder=
+  'attention_rescoring'``: the on-device beam with the same options, then
+  ``decoders/rescoring``; ``rescore_ctc_weight`` defaults to the model's
+  ``ctc_weight`` and ``max_hyp_len`` to 200.
+- ``use_pun`` and ``is_itn`` on every entry point: punctuation from
+  ``infer_utils/pun_predictor`` on the model's device (``pun_model_dir``,
+  else the committed artifact), then ``utils/itn``.
+
+``compute_dtype='bfloat16'`` is the JAX model's ``dtype`` (:118-119), not
+``torch.autocast``: the weights are cast to bf16 once, LayerNorms and the
+CMVN stay float32, the attention scores and softmax are bf16, the streaming
+caches are bf16, and the CTC posteriors and the decoder's scores are
+float32 (``models/base.cast_for_compute``). The fbank features stay
+float32 up to the subsampling layer.
 
 Differences from the JAX predictor, on purpose: the model runs on
 ``cuda:0`` unless ``use_gpu=False``, and there is no fallback.
-``compute_dtype='float32'`` means IEEE float32 on the card: every entry
-point that runs the model holds ``ieee_float32()``, which turns TF32 off for
-matmuls and cuDNN while any caller is inside (the JAX package's
-``Precision.HIGHEST``), whatever the process set. Without a card
-``use_gpu=True`` raises; warm-up errors propagate; a beam decoder that
-fails to build raises (JAX falls back to greedy), and so does a language
-model that exists but fails to load; the decoders that are not ported yet
-raise ``NotImplementedError``; a missing ``mean_istd.json`` raises. ``predict_long``, punctuation and ITN come with the periphery
-(ROADMAP Queue A item 14).
+Every entry point that runs a model holds ``ieee_float32()``, which turns
+TF32 and cuBLAS's reduced-precision bf16 reductions off while any caller
+is inside (the JAX package's ``Precision.HIGHEST``, and XLA's float32
+accumulation of bf16 products), whatever the process set. Without a card
+``use_gpu=True`` raises; warm-up errors propagate; a beam or rescoring
+decoder that fails to build raises (JAX falls back to greedy), and so does
+a language model that exists but fails to load, a punctuation model that
+fails to load (JAX returns the text unpunctuated), an unknown
+``compute_dtype`` (JAX takes it as float32) and a missing
+``mean_istd.json``. ITN is the in-repository rules: the JAX predictor
+tries WeTextProcessing first. Punctuation and ITN apply on the device
+frontend's stream too (the JAX device-frontend stream drops them).
 """
 import contextlib
 import json
@@ -56,9 +78,13 @@ from ppasr_tpu_torch.decoders.greedy import (GreedyStreamingDecoder,
                                              greedy_decoder,
                                              greedy_decoder_batch)
 from ppasr_tpu_torch.decoders.native import NativeBeamSearchDecoder
+from ppasr_tpu_torch.decoders.rescoring import AttentionRescoringDecoder
+from ppasr_tpu_torch.infer_utils.pun_predictor import PunctuationPredictor
+from ppasr_tpu_torch.infer_utils.vad_predictor import VADPredictor
 from ppasr_tpu_torch.models.factory import build_model
 from ppasr_tpu_torch.ops.fbank_cuda import fbank_batch, fbank_window
 from ppasr_tpu_torch.utils.checkpoint import convert_params, load_msgpack
+from ppasr_tpu_torch.utils.itn import inverse_normalize
 from ppasr_tpu_torch.utils.logger import setup_logger
 
 logger = setup_logger(__name__)
@@ -71,20 +97,25 @@ _tf32_saved = None
 
 @contextlib.contextmanager
 def ieee_float32():
-    """TF32 off for matmuls and cuDNN while any caller, in any thread, is
-    inside the block; the process' flags restored when the last one leaves.
-    The first to enter saves the flags, the last to leave restores them, so
-    a caller leaving never turns TF32 back on under another still inside.
-    PyTorch lets cuDNN use TF32 by default, which would run the subsampling
-    and depthwise convolutions at a 10-bit mantissa. Sets the same flags as
-    ``torch.backends.cudnn.flags``."""
+    """TF32 off for matmuls and cuDNN, and cuBLAS's reduced-precision bf16
+    reductions off, while any caller, in any thread, is inside the block;
+    the process' flags restored when the last one leaves. The first to
+    enter saves the flags, the last to leave restores them, so a caller
+    leaving never turns them back on under another still inside. PyTorch
+    lets cuDNN use TF32 by default, which would run the subsampling and
+    depthwise convolutions at a 10-bit mantissa, and lets cuBLAS reduce
+    bf16 products in bf16, where XLA accumulates them in float32. Sets the
+    same flags as ``torch.backends.cudnn.flags`` and
+    ``torch.backends.cuda.matmul``."""
     global _tf32_callers, _tf32_saved
+    matmul = torch.backends.cuda.matmul
     with _tf32_lock:
         if _tf32_callers == 0:
-            _tf32_saved = (torch.backends.cuda.matmul.allow_tf32,
-                           torch.backends.cudnn.allow_tf32)
-            torch.backends.cuda.matmul.allow_tf32 = False
+            _tf32_saved = (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                           matmul.allow_bf16_reduced_precision_reduction)
+            matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            matmul.allow_bf16_reduced_precision_reduction = False
         _tf32_callers += 1
     try:
         yield
@@ -92,8 +123,8 @@ def ieee_float32():
         with _tf32_lock:
             _tf32_callers -= 1
             if _tf32_callers == 0:
-                (torch.backends.cuda.matmul.allow_tf32,
-                 torch.backends.cudnn.allow_tf32) = _tf32_saved
+                (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                 matmul.allow_bf16_reduced_precision_reduction) = _tf32_saved
 
 
 def _batch_bucket(n: int) -> int:
@@ -102,10 +133,8 @@ def _batch_bucket(n: int) -> int:
     return 1 << (n - 1).bit_length() if n > 1 else 1
 
 
-_NOT_PORTED_DECODERS = {
-    'attention_rescoring': "ROADMAP Queue A item 11, attention rescoring",
-}
-_DECODERS = ('ctc_greedy', 'ctc_beam_search')
+_DECODERS = ('ctc_greedy', 'ctc_beam_search', 'attention_rescoring')
+_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
 
 class PPASRPredictor:
@@ -123,25 +152,27 @@ class PPASRPredictor:
         """Same signature as the JAX predictor (ppasr_tpu/predict.py:43-53).
         ``model_path``: exported directory with ``model.msgpack`` and
         ``inference.json``. ``use_gpu``: run on ``cuda:0`` (raises without
-        a card) or on the CPU."""
+        a card) or on the CPU. ``use_pun``: load the punctuation model now
+        (from ``pun_model_dir``, else the committed artifact) rather than at
+        the first call that asks for it. ``compute_dtype``: ``'float32'``
+        or ``'bfloat16'``."""
         if use_gpu and not torch.cuda.is_available():
             raise RuntimeError("use_gpu=True but torch.cuda.is_available() "
                                "is False; pass use_gpu=False for the CPU")
         self.device = torch.device('cuda:0' if use_gpu else 'cpu')
         if model_tag is not None:
-            raise NotImplementedError("model_tag downloads are not ported "
-                                      "(ROADMAP Queue A item 14, periphery)")
-        if use_pun:
-            raise NotImplementedError("punctuation is not ported yet "
-                                      "(ROADMAP Queue A item 14, periphery)")
-        if compute_dtype != 'float32':
-            raise NotImplementedError(f"compute_dtype={compute_dtype!r}: the "
-                                      f"port runs float32 only so far")
+            raise NotImplementedError("model_tag downloads are not ported: "
+                                      "they need the network")
+        if compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype {compute_dtype!r} is not one of "
+                             f"{sorted(_DTYPES)}")
+        self.compute_dtype = _DTYPES[compute_dtype]
         self.configs = load_config(configs) if configs is not None else None
         with open(os.path.join(model_path, 'inference.json'), 'r',
                   encoding='utf-8') as f:
             infer_conf = json.load(f)
         self.use_model = infer_conf['use_model']
+        self._model_conf = dict(infer_conf.get('model_conf') or {})
         self.streaming = infer_conf['streaming']
         self.input_dim = infer_conf['input_dim']
         self.vocab_size = infer_conf['vocab_size']
@@ -168,10 +199,6 @@ class PPASRPredictor:
                                'n_mels': self.input_dim}
             self.decoder_name = decoder or 'ctc_greedy'
             self.decoder_configs = decoder_configs or {}
-        if self.decoder_name in _NOT_PORTED_DECODERS:
-            raise NotImplementedError(
-                f"decoder {self.decoder_name!r} is not ported yet: "
-                f"{_NOT_PORTED_DECODERS[self.decoder_name]}")
         if self.decoder_name not in _DECODERS:
             raise ValueError(f"unknown decoder {self.decoder_name!r}")
 
@@ -199,13 +226,13 @@ class PPASRPredictor:
         if not os.path.exists(full_path):
             raise FileNotFoundError(f"no model.msgpack in {model_path} (the "
                                     f"int8 artifact is not ported yet)")
-        state_dict, skipped = convert_params(load_msgpack(full_path))
+        state_dict = convert_params(load_msgpack(full_path))
         self.model.load_state_dict(state_dict, strict=True)
-        self.skipped_params = skipped
         self.model.to(self.device).eval()
-        logger.info(f"{self.use_model}: {len(state_dict)} tensors on "
-                    f"{self.device}, {len(skipped)} decoder leaves not loaded "
-                    f"(attention decoder not ported)")
+        self.model.set_compute_dtype(self.compute_dtype)
+        logger.info(f"{self.use_model}: all {len(state_dict)} tensors of "
+                    f"model.msgpack loaded on {self.device}, computing in "
+                    f"{compute_dtype}")
 
         # chunk math (ppasr_tpu/predict.py:140-150)
         self.decoding_chunk_size = decoding_chunk_size
@@ -222,15 +249,31 @@ class PPASRPredictor:
         self._win_samples = (self.decoding_window - 1) * 160 + 400
         self._stride_samples = self.stride * 160
 
+        self._pun_model_dir = pun_model_dir
+        self._pun_predictor = None
+        self._vad = None
+        if use_pun:
+            self._punctuation()
         self._init_decoder()
         self.reset_stream()
         self._warm_up()
 
     def _init_decoder(self):
-        """The beam decoder of ``decoder='ctc_beam_search'`` (None for
-        greedy decoding), from ``decoder_configs``. Raises when it cannot be
-        built."""
+        """The beam decoder of ``decoder='ctc_beam_search'`` or the
+        rescorer of ``'attention_rescoring'`` (None for greedy decoding),
+        from ``decoder_configs``. Raises when it cannot be built."""
         self._beam_decoder = None
+        self._rescorer = None
+        if self.decoder_name == 'attention_rescoring':
+            conf = dict(self.decoder_configs)
+            conf.pop('backend', None)
+            ctc_weight = conf.pop('rescore_ctc_weight',
+                                  self._model_conf.get('ctc_weight', 0.3))
+            max_hyp_len = conf.pop('max_hyp_len', 200)
+            self._rescorer = AttentionRescoringDecoder(
+                self.model, self.vocab_list, ctc_weight=ctc_weight,
+                max_hyp_len=max_hyp_len, device=self.device, **conf)
+            return
         if self.decoder_name != 'ctc_beam_search':
             return
         conf = dict(self.decoder_configs)
@@ -294,16 +337,16 @@ class PPASRPredictor:
     def predict(self, audio_data, use_pun: bool = False,
                 is_itn: bool = False, sample_rate: int = 16000):
         """Offline recognition → {'text', 'score'}."""
-        if use_pun or is_itn:
-            raise NotImplementedError("punctuation and ITN are not ported "
-                                      "yet (ROADMAP Queue A item 14, "
-                                      "periphery)")
         audio = self._load_audio(audio_data, sample_rate)
         feat = self.audio_featurizer.featurize(audio)
         padded, t = self._pad_bucket(feat)
-        probs, olens = self.model.get_encoder_out(
-            torch.from_numpy(padded).to(self.device),
-            torch.tensor([t], device=self.device))
+        xs = torch.from_numpy(padded).to(self.device)
+        lens = torch.tensor([t], device=self.device)
+        if self._rescorer is not None:
+            score, text = self._rescorer.decode_batch_rescore(
+                *self.model.encode_for_rescore(xs, lens))[0]
+            return self._result(text, score, use_pun, is_itn)
+        probs, olens = self.model.get_encoder_out(xs, lens)
         n = int(olens[0])
         if isinstance(self._beam_decoder, TorchBeamSearchDecoder):
             score, text = self._beam_decoder.decode(probs[0, :n])
@@ -313,7 +356,7 @@ class PPASRPredictor:
         else:
             score, text = greedy_decoder(probs[0].cpu().numpy()[:n],
                                          self.vocab_list)
-        return {'text': text, 'score': score}
+        return self._result(text, score, use_pun, is_itn)
 
     @torch.inference_mode()
     @ieee_float32()
@@ -322,10 +365,6 @@ class PPASRPredictor:
         """Batched offline recognition: list of path / bytes / ndarray /
         AudioSegment → list of {'text', 'score'}, one padded encoder pass
         and one batched decode."""
-        if use_pun or is_itn:
-            raise NotImplementedError("punctuation and ITN are not ported "
-                                      "yet (ROADMAP Queue A item 14, "
-                                      "periphery)")
         if not audio_list:
             return []
         n = len(audio_list)
@@ -351,7 +390,11 @@ class PPASRPredictor:
                 flens[i] = f.shape[0]
             batch = torch.from_numpy(padded).to(self.device)
             lens = torch.from_numpy(flens).to(self.device)
-        if isinstance(self._beam_decoder, TorchBeamSearchDecoder):
+        if self._rescorer is not None:
+            enc, probs, olens = self.model.encode_for_rescore(batch, lens)
+            results = self._rescorer.decode_batch_rescore(
+                enc[:n], probs[:n], olens[:n])
+        elif isinstance(self._beam_decoder, TorchBeamSearchDecoder):
             # softmax-free: candidates straight from the CTC logits
             logits, olens = self.model.get_encoder_logits(batch, lens)
             results = self._beam_decoder.decode_batch_from_logits(
@@ -364,7 +407,37 @@ class PPASRPredictor:
             probs, olens = self.model.get_encoder_out(batch, lens)
             results = greedy_decoder_batch(probs[:n], olens[:n].cpu().numpy(),
                                            self.vocab_list)
-        return [{'text': text, 'score': score} for score, text in results]
+        return [self._result(text, score, use_pun, is_itn)
+                for score, text in results]
+
+    @torch.inference_mode()
+    @ieee_float32()
+    def predict_long(self, audio_data, use_pun: bool = False,
+                     is_itn: bool = False, sample_rate: int = 16000):
+        """Long-audio recognition → {'text', 'score'}: the VAD's speech
+        segments through ``predict_batch`` in groups of at most 32 (which
+        bounds the padded activations of an hour-long recording), the
+        non-empty texts joined with ``，``, the score their mean."""
+        audio = self._load_audio(audio_data, sample_rate)
+        if audio.sample_rate != 16000:
+            audio.resample(16000)
+        if self._vad is None:
+            self._vad = VADPredictor(sampling_rate=audio.sample_rate,
+                                     device=self.device)
+        speeches = self._vad.get_speech_timestamps(audio.samples)
+        if not speeches:
+            speeches = [{'start': 0, 'end': audio.num_samples}]
+        parts = [AudioSegment(audio.samples[seg['start']:seg['end']].copy(),
+                              audio.sample_rate) for seg in speeches]
+        results = []
+        for i in range(0, len(parts), 32):
+            results.extend(self.predict_batch(parts[i:i + 32],
+                                              is_itn=is_itn))
+        said = [r for r in results if r['text']]
+        text = '，'.join(r['text'] for r in said)
+        return self._result(
+            text, float(np.mean([r['score'] for r in said])) if said
+            else 0.0, use_pun, False)
 
     def _waveform_batch(self, audio_list, sample_rate: int = 16000):
         """The device frontend's input: ([b_bucket, S] int16-scaled float32
@@ -392,6 +465,8 @@ class PPASRPredictor:
         self._state = None
         self._stream_sq_sum = 0.0
         self._stream_n = 0
+        self._stream_enc_chunks = []
+        self._stream_probs_chunks = []
         self._stream_decoder = GreedyStreamingDecoder(self.vocab_list)
         if self._beam_decoder is not None:
             self._beam_decoder.reset()
@@ -408,14 +483,10 @@ class PPASRPredictor:
                        channels: int = 1, samp_width: int = 2,
                        sample_rate: int = 16000):
         """Incremental recognition → {'text', 'score'} for the utterance so
-        far."""
+        far; at ``is_end`` with attention rescoring, the rescored one."""
         if not self.streaming:
             raise RuntimeError("model was built non-streaming; "
                                "use predict() instead")
-        if use_pun or is_itn:
-            raise NotImplementedError("punctuation and ITN are not ported "
-                                      "yet (ROADMAP Queue A item 14, "
-                                      "periphery)")
         if isinstance(audio_data, bytes):
             audio = AudioSegment.from_pcm_bytes(audio_data, channels,
                                                 samp_width, sample_rate)
@@ -431,8 +502,17 @@ class PPASRPredictor:
             self._stream_n += len(s)
 
         if self.use_device_frontend:
-            return self._predict_stream_device(is_end)
+            score, text = self._predict_stream_device(is_end)
+        else:
+            score, text = self._predict_stream_host(is_end)
+        if is_end and self._stream_probs_chunks:
+            score, text = self._rescorer.rescore_utterance(
+                self._stream_enc_chunks, self._stream_probs_chunks)
+        return self._result(text or '', score or 0.0, use_pun, is_itn)
 
+    def _predict_stream_host(self, is_end):
+        """Host-frontend streaming (ppasr_tpu/predict.py:509-555) →
+        (score, text) of the chunk decoder."""
         # featurize everything buffered without gain; the running-RMS gain
         # is added per window as a log-mel offset in _run_chunk
         if len(self._remained_wav) >= 400:
@@ -463,7 +543,7 @@ class PPASRPredictor:
 
         if result_text is None:
             result_score, result_text = self._chunk_decoder.current()
-        return {'text': result_text or '', 'score': result_score or 0.0}
+        return result_score, result_text
 
     def _device_featurize(self, window: np.ndarray) -> np.ndarray:
         """[win_samples] float32 PCM → [decoding_window, n_mels] log-mel
@@ -477,7 +557,7 @@ class PPASRPredictor:
     def _predict_stream_device(self, is_end):
         """Device-frontend streaming (ppasr_tpu/predict.py:569-605): raw PCM
         windows go through the fused fbank on the device; the host only
-        slices sample buffers."""
+        slices sample buffers. → (score, text) of the chunk decoder."""
         result_text, result_score = None, None
         while len(self._remained_wav) >= self._win_samples:
             window = self._remained_wav[:self._win_samples]
@@ -497,7 +577,7 @@ class PPASRPredictor:
                         self._chunk_decoder.decode_chunk(probs)
         if result_text is None:
             result_score, result_text = self._chunk_decoder.current()
-        return {'text': result_text or '', 'score': result_score or 0.0}
+        return result_score, result_text
 
     def _stream_gain_offset(self) -> float:
         """Additive log-mel offset from the running-RMS dB gain estimate."""
@@ -509,7 +589,9 @@ class PPASRPredictor:
         return float(gain_db * np.log(10.0) / 10.0)
 
     def _run_chunk(self, window_feat: np.ndarray) -> np.ndarray:
-        """One encoder chunk step on the device; returns [T_out, V] probs."""
+        """One encoder chunk step on the device; returns [T_out, V] probs.
+        With attention rescoring, the step's encoder output and posteriors
+        also stay on the device for the final pass."""
         window_feat = window_feat + self._stream_gain_offset()
         if self._state is None:
             self._state = self.model.init_state(1, self.cache_size,
@@ -524,5 +606,34 @@ class PPASRPredictor:
         xs = torch.from_numpy(np.ascontiguousarray(
             window_feat[None], np.float32)).to(self.device)
         valid_out = ((t - self.context) // self.subsampling) + 1
-        probs, self._state = self.model.get_encoder_out_chunk(xs, self._state)
+        if self._rescorer is None:
+            probs, self._state = self.model.get_encoder_out_chunk(
+                xs, self._state)
+        else:
+            enc, probs, self._state = \
+                self.model.get_encoder_out_chunk_rescore(xs, self._state)
+            self._stream_enc_chunks.append(enc[0, :valid_out])
+            self._stream_probs_chunks.append(probs[0, :valid_out])
         return probs[0, :valid_out].cpu().numpy()
+
+    # ------------------------------------------------- punctuation & itn
+
+    def _punctuation(self) -> PunctuationPredictor:
+        """The punctuation model on the model's device, built at first
+        use; a model that fails to load raises."""
+        if self._pun_predictor is None:
+            kwargs = {'model_dir': self._pun_model_dir} \
+                if self._pun_model_dir else {}
+            self._pun_predictor = PunctuationPredictor(device=self.device,
+                                                       **kwargs)
+        return self._pun_predictor
+
+    def _result(self, text: str, score: float, use_pun: bool,
+                is_itn: bool) -> dict:
+        """{'text', 'score'}, the text punctuated and then normalized as
+        asked (ppasr_tpu/predict.py:349-352)."""
+        if use_pun and text:
+            text = self._punctuation()(text)
+        if is_itn and text:
+            text = inverse_normalize(text)
+        return {'text': text, 'score': score}

@@ -11,9 +11,13 @@ through the predictor's ``stream_featurizer``, as the JAX engine makes them.
 
 The engine lock guards both the slot bookkeeping and the batch state; every
 chunk step also runs under ``predict.ieee_float32()``. Only the Conformer
-family is ported: ``stream_axes`` raises for the other states. Attention
-rescoring at a stream's end is absent, because the port's predictor raises
-on ``attention_rescoring``.
+family is ported: ``stream_axes`` raises for the other states.
+
+With a predictor built with ``decoder='attention_rescoring'``, each tick
+also keeps every slot's encoder output and posteriors on the device, and a
+stream's last ``feed`` (``is_end``) returns the predictor's rescorer's pass
+over them (:47-52, :62, :76-79, :135-143); the partial results stay
+greedy. The engine runs in the predictor's compute dtype.
 """
 import threading
 import time
@@ -42,6 +46,7 @@ class StreamingBatchEngine:
             self._batch_state = self.model.init_state(
                 max_streams, predictor.cache_size, self.device)
         self._axes = self.stream_axes(self._batch_state)
+        self._rescorer = predictor._rescorer
 
         self._lock = threading.Lock()
         self._free = list(range(max_streams))
@@ -49,6 +54,7 @@ class StreamingBatchEngine:
         self._wav_tail = {}    # slot -> un-framed samples
         self._decoders = {}    # slot -> GreedyStreamingDecoder
         self._gain = {}        # slot -> [sq_sum, n]
+        self._rescore_chunks = {}  # slot -> ([enc...], [probs...])
         self.ticks = 0         # batched chunk steps run
         self.tick_seconds = 0.0  # host clock over them, results on the host
 
@@ -90,13 +96,15 @@ class StreamingBatchEngine:
             self._wav_tail[slot] = np.zeros(0, np.float32)
             self._decoders[slot] = GreedyStreamingDecoder(self.p.vocab_list)
             self._gain[slot] = [0.0, 0]
+            if self._rescorer is not None:
+                self._rescore_chunks[slot] = ([], [])
             self._zero_slot(slot)
         return slot
 
     def close_stream(self, slot: int):
         with self._lock:
             for d in (self._buffers, self._wav_tail, self._decoders,
-                      self._gain):
+                      self._gain, self._rescore_chunks):
                 d.pop(slot, None)
             if slot not in self._free:
                 self._free.append(slot)
@@ -111,7 +119,8 @@ class StreamingBatchEngine:
     def feed(self, slot: int, audio_data, is_end: bool = False,
              sample_rate: int = 16000) -> dict:
         """Feed PCM (bytes or float ndarray) for one stream; returns the
-        stream's current hypothesis {'text', 'score'}."""
+        stream's current hypothesis {'text', 'score'}, at ``is_end`` the
+        rescored one when the predictor rescores."""
         if isinstance(audio_data, bytes):
             audio = AudioSegment.from_pcm_bytes(audio_data,
                                                 sample_rate=sample_rate)
@@ -142,7 +151,18 @@ class StreamingBatchEngine:
 
             self._tick(flush_slot=slot if is_end else None)
             score, text = self._decoders[slot].current()
+            if is_end and self._rescore_chunks.get(slot, ([], []))[1]:
+                score, text = self._rescore(slot)
         return {'text': text, 'score': score}
+
+    @torch.inference_mode()
+    @ieee_float32()
+    def _rescore(self, slot: int):
+        """The final rescoring pass over one stream's chunks, which it
+        clears. Called with the engine lock held."""
+        encs, prbs = self._rescore_chunks[slot]
+        self._rescore_chunks[slot] = ([], [])
+        return self._rescorer.rescore_utterance(encs, prbs)
 
     # ------------------------------------------------------------------ tick
 
@@ -184,8 +204,15 @@ class StreamingBatchEngine:
                 return
             t0 = time.perf_counter()
             mask = torch.from_numpy(valid > 0).to(self.device)
-            probs, new_state = self.model.get_encoder_out_chunk(
-                torch.from_numpy(windows).to(self.device), self._batch_state)
+            xs = torch.from_numpy(windows).to(self.device)
+            enc = None
+            if self._rescorer is None:
+                probs, new_state = self.model.get_encoder_out_chunk(
+                    xs, self._batch_state)
+            else:
+                enc, probs, new_state = \
+                    self.model.get_encoder_out_chunk_rescore(
+                        xs, self._batch_state)
             self._batch_state = self._select(mask, new_state,
                                              self._batch_state)
             probs_np = probs.cpu().numpy()
@@ -194,3 +221,7 @@ class StreamingBatchEngine:
             for slot in ready:
                 n_out = ((int(valid[slot]) - ctx) // self.p.subsampling) + 1
                 self._decoders[slot].decode_chunk(probs_np[slot][:n_out])
+                if enc is not None and slot in self._rescore_chunks:
+                    encs, prbs = self._rescore_chunks[slot]
+                    encs.append(enc[slot, :n_out])
+                    prbs.append(probs[slot, :n_out])

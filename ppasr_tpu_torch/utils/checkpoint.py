@@ -171,37 +171,29 @@ def _convert_leaf(name: str, arr: np.ndarray):
         if arr.ndim == 4:      # NHWC Conv [kh, kw, in, out] → [out, in, kh, kw]
             return 'weight', arr.transpose(3, 2, 0, 1)
         raise ValueError(f"kernel of rank {arr.ndim}")
-    if name == 'scale':        # LayerNorm
+    if name in ('scale', 'embedding'):   # LayerNorm, Embed [V, D]
         return 'weight', arr
     if name in ('bias', 'pos_bias_u', 'pos_bias_v'):
         return name, arr
     raise ValueError(f"unknown parameter leaf {name!r}")
 
 
-# parameter groups of the flax tree that the port does not build yet: the
-# attention decoder (ROADMAP Queue A, attention rescoring)
-SKIPPED_GROUPS = ('decoder',)
-
-
 def convert_params(flax_tree: dict):
-    """Flax parameter tree (``{'params': {...}}`` or the inner dict) → (torch
-    ``state_dict``, list of skipped flax paths).
+    """Flax parameter tree (``{'params': {...}}`` or the inner dict) → torch
+    ``state_dict`` of every leaf.
 
     Maps ``Dense.kernel [in,out]`` → ``Linear.weight [out,in]``, NHWC
     ``Conv.kernel [kh,kw,in,out]`` → ``[out,in,kh,kw]``, the depthwise
-    ``[k,1,C]`` kernel → ``[C,1,k]``, LayerNorm ``scale`` → ``weight``;
-    ``pos_bias_u/v [H,dk]`` and biases unchanged. ``decoder/*`` (the
-    attention decoder, not ported yet) is skipped and listed."""
+    ``[k,1,C]`` kernel → ``[C,1,k]``, LayerNorm ``scale`` and
+    ``Embed.embedding`` → ``weight``; ``pos_bias_u/v [H,dk]`` and biases
+    unchanged."""
     params = flax_tree.get('params', flax_tree)
-    state, skipped = {}, []
+    state = {}
     for path, arr in _flatten(params):
-        if path[0] in SKIPPED_GROUPS:
-            skipped.append('/'.join(path))
-            continue
         leaf, value = _convert_leaf(path[-1], np.asarray(arr))
         name = _torch_name(path[:-1] + (leaf,))
         state[name] = torch.from_numpy(np.ascontiguousarray(value).copy())
-    return state, skipped
+    return state
 
 
 def write_inference_artifact(out_dir: str, config: dict, model_msgpack: str,

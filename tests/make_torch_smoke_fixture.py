@@ -52,6 +52,18 @@ BEAM_CONF = dict(alpha=0.8, beta=1.0, beam_size=300, num_processes=2,
 # |Δscore| of a flagship beam result against the fixture's JAX score: the
 # flagship's CTC log-prob tolerance (tests/test_torch_flagship.py)
 BEAM_SCORE_TOL = 1e-3
+# bfloat16: the largest |Δ| allowed between the port's and the JAX
+# package's CTC log-probs (the flagship on the CPU differs by up to 0.66,
+# each package's bf16 from float32 by up to 0.46: tests/test_torch_bf16.py)
+BF16_LOGPROB_TOL = 1.0
+# the near-tie rule of the bfloat16 paths: where a greedy text differs from
+# JAX's, every frame whose argmax differs must have a JAX top-2 log-prob
+# (so logit) margin below this: two log-probs that each move by
+# BF16_LOGPROB_TOL can swap
+BF16_LOGIT_TOL = 2 * BF16_LOGPROB_TOL
+# the long recording of predict_long: quiet noise between the utterances
+LONG_SEED = 20241017
+LONG_GAP = 8000       # 0.5 s
 
 
 def beam_conf(conf_json=None):
@@ -139,23 +151,149 @@ def engine_texts(engine, pcms, piece=PIECE, stagger=2):
     bytes, ``piece`` samples at a time, one piece per open stream in turn;
     stream i opens once stream i − 1 has fed ``stagger`` pieces. The final
     texts."""
+    return [r['text'] for r in engine_results(engine, pcms, piece, stagger)]
+
+
+def engine_results(engine, pcms, piece=PIECE, stagger=2):
+    """``engine_texts``' feeding; the final {'text', 'score'} of each
+    stream."""
     n = len(pcms)
-    slots, pos, fed, texts = [], [0] * n, [0] * n, [None] * n
-    while any(t is None for t in texts):
+    slots, pos, fed, out = [], [0] * n, [0] * n, [None] * n
+    while any(r is None for r in out):
         if len(slots) < n and (not slots or fed[len(slots) - 1] >= stagger):
             slots.append(engine.open_stream())
         for i, slot in enumerate(slots):
-            if texts[i] is not None:
+            if out[i] is not None:
                 continue
             pos[i] += piece
             end = pos[i] >= len(pcms[i])
-            out = engine.feed(slot, pcms[i][pos[i] - piece:pos[i]].tobytes(),
+            res = engine.feed(slot, pcms[i][pos[i] - piece:pos[i]].tobytes(),
                               is_end=end)
             fed[i] += 1
             if end:
-                texts[i] = out['text']
+                out[i] = res
                 engine.close_stream(slot)
-    return texts
+    return out
+
+
+def long_recording(pcms, seed=LONG_SEED, gap=LONG_GAP):
+    """int16 PCM of ``pcms`` with ``gap`` samples of quiet noise (std 30)
+    before each and after the last, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for p in pcms:
+        parts += [(rng.standard_normal(gap) * 30).astype('<i2'), p]
+    parts.append((rng.standard_normal(gap) * 30).astype('<i2'))
+    return np.concatenate(parts)
+
+
+class PosteriorRecorder:
+    """Within ``with``, records the CTC posteriors that greedy decoding
+    reads: each ``greedy_decoder`` call, each row of a
+    ``greedy_decoder_batch`` call (cut at its length), and each streaming
+    decoder's chunks joined, in the order the decoders first decode. Give
+    it the package's ``predict`` and ``decoders.greedy`` modules; as
+    ``utts``, each utterance's (argmax ids, top-2 log-prob margins)."""
+
+    def __init__(self, predict_module, greedy_module):
+        self.mods = (predict_module, greedy_module)
+        self.utts, self._streams = [], {}
+
+    def _add(self, probs):
+        p = np.asarray(probs.detach().float().cpu() if hasattr(
+            probs, 'detach') else probs, np.float32)
+        top2 = np.sort(p, axis=-1)[:, -2:]
+        margin = np.log(np.maximum(top2[:, 1], 1e-30)) \
+            - np.log(np.maximum(top2[:, 0], 1e-30))
+        return [p.argmax(-1).astype(np.int32), margin.astype(np.float32)]
+
+    def __enter__(self):
+        predict_module, greedy = self.mods
+        saved = self._saved = []
+
+        def patch(obj, name, fn):
+            saved.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, fn)
+        single, batch = greedy.greedy_decoder, greedy.greedy_decoder_batch
+        chunk = greedy.GreedyStreamingDecoder.decode_chunk
+
+        def rec_single(probs, *a, **k):
+            self.utts.append(self._add(probs))
+            return single(probs, *a, **k)
+
+        def rec_batch(probs, lens, *a, **k):
+            for b, n in enumerate(lens):
+                self.utts.append(self._add(probs[b][:int(n)]))
+            return batch(probs, lens, *a, **k)
+
+        def rec_chunk(dec, probs, *a, **k):
+            if len(probs):
+                if id(dec) not in self._streams:
+                    self._streams[id(dec)] = (dec, len(self.utts))
+                    self.utts.append([np.zeros(0, np.int32),
+                                      np.zeros(0, np.float32)])
+                i = self._streams[id(dec)][1]
+                self.utts[i] = [np.concatenate([x, y]) for x, y in
+                                zip(self.utts[i], self._add(probs))]
+            return chunk(dec, probs, *a, **k)
+        for mod in (predict_module, greedy):
+            if hasattr(mod, 'greedy_decoder'):
+                patch(mod, 'greedy_decoder', rec_single)
+            if hasattr(mod, 'greedy_decoder_batch'):
+                patch(mod, 'greedy_decoder_batch', rec_batch)
+        patch(greedy.GreedyStreamingDecoder, 'decode_chunk', rec_chunk)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in reversed(self._saved):
+            setattr(obj, name, fn)
+
+    def pack(self, n=None):
+        """The first ``n`` utterances as (ids, margins, frame counts)."""
+        utts = self.utts[:n]
+        return (np.concatenate([u[0] for u in utts]),
+                np.concatenate([u[1] for u in utts]),
+                np.array([len(u[0]) for u in utts], np.int32))
+
+
+def near_tie_failures(got_texts, want_texts, got_ids, want_ids,
+                      want_margins, frames, tol=BF16_LOGIT_TOL):
+    """The bfloat16 rule: texts equal, or, for each utterance whose text
+    differs, the same frame count and a JAX top-2 margin below ``tol`` at
+    every frame whose argmax differs. → list of the failures (empty when
+    the rule holds); ``got_ids`` and the rest are packed as
+    ``PosteriorRecorder.pack`` packs them."""
+    bad, start = [], 0
+    want_ids = np.asarray(want_ids)
+    for i, n in enumerate(np.asarray(frames)):
+        n = int(n)
+        if got_texts[i] != want_texts[i]:
+            g = np.asarray(got_ids[i])
+            w, m = want_ids[start:start + n], np.asarray(
+                want_margins)[start:start + n]
+            if g.shape != w.shape:
+                bad.append((i, f'{len(g)} frames, JAX {n}'))
+            else:
+                off = np.nonzero(g != w)[0]
+                if not len(off) or (m[off] >= tol).any():
+                    bad.append((i, f'frames {off.tolist()} margins '
+                                   f'{m[off].tolist()}'))
+        start += n
+    return bad
+
+
+def texts_under_near_ties(run_want, want_modules, run_got, got_modules,
+                          tol=BF16_LOGIT_TOL):
+    """Run ``run_want`` (the reference) and ``run_got``, each returning
+    greedy texts, under ``PosteriorRecorder(*modules)``; → (the texts
+    ``run_got`` gave, ``near_tie_failures`` against the reference)."""
+    with PosteriorRecorder(*want_modules) as want_rec:
+        want = run_want()
+    with PosteriorRecorder(*got_modules) as got_rec:
+        got = run_got()
+    ids, margins, frames = want_rec.pack(len(want))
+    return got, near_tie_failures(got, want, [u[0] for u in got_rec.utts],
+                                  ids, margins, frames, tol)
 
 
 def host_features(pred, pcms):
@@ -210,6 +348,19 @@ def main():
                              decoder_configs=dict(beam_conf(),
                                                   backend='native'))
         beam['jax_beam_native'] = [nat.predict(p) for p in pcms]
+        del dev, nat
+        res = PPASRPredictor(model_path=artifact, use_device_frontend=True,
+                             decoder='attention_rescoring',
+                             decoder_configs=beam_conf())
+        beam['jax_rescore_offline'] = [res.predict(p) for p in pcms]
+        beam['jax_rescore_batch_device'] = res.predict_batch(
+            batch_utts(pcms))
+        beam['jax_rescore_stream'] = [stream_result(res, p) for p in pcms]
+        beam['jax_rescore_engine'] = engine_results(
+            StreamingBatchEngine(res, max_streams=4), pcms)
+        del res
+        extra = bf16_keys(artifact, pcms)
+        extra.update(long_keys(pred, pcms))
     beam_keys = {}
     for key, results in beam.items():
         beam_keys[key] = np.array([r['text'] for r in results])
@@ -222,14 +373,62 @@ def main():
         piece=np.array(PIECE), jax_batch=np.array(batch),
         jax_batch_device=np.array(batch_device), jax_engine=np.array(engine),
         jax_stream_eval=np.array(stream_eval), beam_lm=np.array(BEAM_LM),
-        beam_conf=np.array(json.dumps(BEAM_CONF)), **beam_keys)
+        beam_conf=np.array(json.dumps(BEAM_CONF)), **beam_keys, **extra)
     print(OUT, os.path.getsize(OUT), 'bytes')
     for row in zip(texts, offline, stream, engine, stream_eval):
         print(*row)
     for b, d in zip(batch, batch_device):
         print(b, d)
-    for key, texts in beam_keys.items():
-        print(key, list(texts))
+    for key, texts in list(beam_keys.items()) + list(extra.items()):
+        print(key, list(texts) if texts.ndim else texts)
+
+
+def bf16_keys(artifact, pcms):
+    """The JAX bfloat16 flagship's greedy texts through ``predict``,
+    ``predict_batch`` (device frontend), ``predict_stream`` (device
+    frontend) and the engine, each with the per-frame argmax ids, top-2
+    log-prob margins and frame counts that the near-tie rule reads."""
+    import ppasr_tpu.decoders.greedy as greedy
+    import ppasr_tpu.predict as predict
+    from ppasr_tpu.serving import StreamingBatchEngine
+    pred = predict.PPASRPredictor(model_path=artifact,
+                                  use_device_frontend=True,
+                                  compute_dtype='bfloat16')
+    runs = {
+        'offline': lambda: [pred.predict(p)['text'] for p in pcms],
+        'batch_device': lambda: [r['text'] for r in pred.predict_batch(
+            batch_utts(pcms))],
+        'stream': lambda: [stream_text(pred, p) for p in pcms],
+        'engine': lambda: engine_texts(StreamingBatchEngine(
+            pred, max_streams=4), pcms),
+    }
+    out = {}
+    for name, run in runs.items():
+        with PosteriorRecorder(predict, greedy) as rec:
+            texts = run()
+        ids, margins, frames = rec.pack(len(texts))
+        key = f'jax_bf16_{name}'
+        out.update({key: np.array(texts), key + '_ids': ids.astype(np.int16),
+                    key + '_margins': margins, key + '_frames': frames})
+    return out
+
+
+def long_keys(pred, pcms):
+    """``predict_long`` on ``long_recording(pcms)``: the VAD's speech
+    timestamps ([n, 2] start and end samples) and the results without and
+    with punctuation and ITN."""
+    from ppasr_tpu.infer_utils.vad_predictor import VADPredictor
+    wav = long_recording(pcms)
+    stamps = VADPredictor().get_speech_timestamps(
+        wav.astype(np.float32) / 32768.0)
+    plain = pred.predict_long(wav)
+    marked = pred.predict_long(wav, use_pun=True, is_itn=True)
+    return {'jax_long_vad': np.array([[s['start'], s['end']]
+                                      for s in stamps], np.int64),
+            'jax_long': np.array(plain['text']),
+            'jax_long_score': np.array(plain['score'], np.float32),
+            'jax_long_pun_itn': np.array(marked['text']),
+            'jax_long_pun_itn_score': np.array(marked['score'], np.float32)}
 
 
 if __name__ == '__main__':

@@ -1,7 +1,7 @@
 """Port readers against the libraries the JAX package uses: the stdlib
 msgpack decoder against ``flax.serialization.msgpack_restore`` on the
 committed flagship checkpoint (bit-exact, leaf for leaf), ``convert_params``
-against the port's Conformer, and the YAML-subset reader against
+against the port's Conformer and its attention decoder, and the YAML-subset reader against
 ``yaml.safe_load`` on every config."""
 import glob
 import os
@@ -65,15 +65,14 @@ def test_msgpack_decoder_scalar_types():
 
 
 def test_convert_params_covers_encoder_and_ctc(port_tree):
-    state, skipped = convert_params(port_tree)
+    """Every leaf converted, the attention decoder's too, and the flagship
+    model (decoder included) loads them with strict=True."""
+    state = convert_params(port_tree)
     flat = {'/'.join(str(k.key) for k in p[1:]): a
             for p, a in _leaves(port_tree)}
-    decoder = sorted(k for k in flat if k.startswith('decoder/'))
-    assert sorted(skipped) == decoder and decoder
-    kept = [k for k in flat if not k.startswith('decoder/')]
-    assert len(state) == len(kept)
+    assert len(state) == len(flat) == 596
     assert sum(v.numel() for v in state.values()) == \
-        sum(flat[k].size for k in kept)
+        sum(a.size for a in flat.values())
     # layouts: Dense transposed, NHWC conv → OIHW, depthwise [k,1,C] → [C,1,k]
     enc = 'encoder/layers_0/'
     np.testing.assert_array_equal(
@@ -92,10 +91,24 @@ def test_convert_params_covers_encoder_and_ctc(port_tree):
         flat[enc + 'norm_mha/scale'])
     assert tuple(state['encoder.layers.0.self_attn.pos_bias_u'].shape) == (4, 64)
     assert tuple(state['encoder.embed.Dense_0.weight'].shape) == (256, 4864)
+    # the decoder: Embed [V, D] as is, its Dense layers transposed
+    dec = 'decoder/right_decoder/'
+    np.testing.assert_array_equal(
+        state['decoder.right_decoder.embed.weight'].numpy(),
+        flat[dec + 'embed/embedding'])
+    assert tuple(state['decoder.left_decoder.embed.weight'].shape) == \
+        (425, 256)
+    np.testing.assert_array_equal(
+        state['decoder.right_decoder.output_layer.weight'].numpy(),
+        flat[dec + 'output_layer/kernel'].T)
+    np.testing.assert_array_equal(
+        state['decoder.left_decoder.layer_2.src_attn.linear_v.weight'].numpy(),
+        flat['decoder/left_decoder/layer_2/src_attn/linear_v/kernel'].T)
 
     cfg = load_config(FLAGSHIP_CONFIG)
     model = build_model(cfg.use_model, 80, 425, streaming=cfg.streaming,
                         encoder_conf=cfg.encoder_conf,
+                        decoder_conf=cfg.decoder_conf,
                         model_conf=cfg.model_conf,
                         mean_istd_path=os.path.join(ROOT, 'dataset',
                                                     'mean_istd.json'))

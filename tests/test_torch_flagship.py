@@ -13,7 +13,16 @@ At the flagship's beam conf (beam 300, cutoff_top_n 40, the trigram
 lm/synth_lm.arpa through the hash tables), the port's ``predict``,
 ``predict_stream`` and device-frontend ``predict_batch``, and ``predict``
 with ``backend='native'``, give the fixture's JAX beam texts, with scores
-within ``BEAM_SCORE_TOL`` (1e-3, the log-prob tolerance)."""
+within ``BEAM_SCORE_TOL`` (1e-3, the log-prob tolerance).
+
+Attention rescoring at the same beam (300 hypotheses of up to 200 tokens
+through the 3 + 3-block decoder): ``predict`` on the first utterance gives
+the fixture's JAX text and score within ``BEAM_SCORE_TOL`` (one utterance
+keeps the CPU run short; chip_smoke.py runs every entry point at full
+width). In bfloat16, ``predict``, ``predict_batch``, ``predict_stream`` and
+the engine give the fixture's JAX bf16 texts under the near-tie rule, and
+the CTC log-probs lie within ``BF16_LOGPROB_TOL`` of JAX's bf16 ones
+(tests/test_torch_bf16.py)."""
 import os
 import sys
 
@@ -23,7 +32,10 @@ import pytest
 import torch
 
 from ppasr_tpu.predict import PPASRPredictor as JaxPredictor
+import ppasr_tpu_torch.decoders.greedy as port_greedy
+import ppasr_tpu_torch.predict as port_predict
 from ppasr_tpu_torch.predict import PPASRPredictor
+from ppasr_tpu_torch.serving import StreamingBatchEngine
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import make_torch_smoke_fixture as fx  # noqa: E402
@@ -66,8 +78,7 @@ def test_fixture_is_reproducible(fixture):
 def test_flagship_transcripts_identical(fixture, predictors):
     data, pcms = fixture
     jax_pred, port_pred = predictors
-    assert port_pred.skipped_params and all(
-        p.startswith('decoder/') for p in port_pred.skipped_params)
+    assert port_pred.model.decoder is not None    # every leaf is loaded
     for i, pcm in enumerate(pcms):
         want_off, want_stream = data['jax_offline'][i], data['jax_stream'][i]
         assert jax_pred.predict(pcm)['text'] == want_off
@@ -122,3 +133,54 @@ def test_flagship_beam_search_matches_fixture(fixture, artifact):
                             decoder='ctc_beam_search',
                             decoder_configs=dict(conf, backend='native'))
     _expect([native.predict(p) for p in pcms], data, 'jax_beam_native')
+
+
+def test_flagship_rescoring_matches_fixture(fixture, artifact):
+    data, pcms = fixture
+    pred = PPASRPredictor(model_path=artifact, use_gpu=False,
+                          use_device_frontend=True,
+                          decoder='attention_rescoring',
+                          decoder_configs=fx.beam_conf())
+    assert pred._rescorer.beam.beam_size == 300
+    assert pred._rescorer.max_hyp_len == 200
+    got = pred.predict(pcms[0])
+    assert got['text'] == str(data['jax_rescore_offline'][0])
+    assert abs(got['score'] - float(data['jax_rescore_offline_scores'][0])) \
+        <= fx.BEAM_SCORE_TOL
+
+
+def test_flagship_bf16_matches_fixture(fixture, artifact, predictors):
+    data, pcms = fixture
+    pred = PPASRPredictor(model_path=artifact, use_gpu=False,
+                          use_device_frontend=True, compute_dtype='bfloat16')
+    runs = {
+        'offline': lambda: [pred.predict(p)['text'] for p in pcms],
+        'batch_device': lambda: [r['text'] for r in pred.predict_batch(
+            fx.batch_utts(pcms))],
+        'stream': lambda: [fx.stream_text(pred, p) for p in pcms],
+        'engine': lambda: fx.engine_texts(StreamingBatchEngine(
+            pred, max_streams=4), pcms),
+    }
+    for name, run in runs.items():
+        key = f'jax_bf16_{name}'
+        with fx.PosteriorRecorder(port_predict, port_greedy) as rec:
+            texts = run()
+        assert not fx.near_tie_failures(
+            texts, [str(t) for t in data[key]], [u[0] for u in rec.utts],
+            data[key + '_ids'], data[key + '_margins'],
+            data[key + '_frames']), name
+
+    jax_pred = predictors[0]
+    bf16 = jax_pred.model.clone(dtype=jax.numpy.bfloat16)
+    log_probs = jax.jit(lambda p, s, l: bf16.apply(
+        p, s, l, method='get_ctc_log_probs'))
+    for pcm in pcms:
+        feat = pred.audio_featurizer.featurize(pred._load_audio(pcm))
+        padded, t = pred._pad_bucket(feat)
+        lj, nj = log_probs(jax_pred.params, padded, np.asarray([t]))
+        with torch.no_grad():
+            lt, _ = pred.model.get_ctc_log_probs(torch.from_numpy(padded),
+                                                 torch.tensor([t]))
+        n = int(nj[0])
+        assert np.abs(np.asarray(lj)[0, :n] - lt.numpy()[0, :n]).max() \
+            <= fx.BF16_LOGPROB_TOL

@@ -4,8 +4,10 @@ offline and simulated-streaming texts equal the JAX predictor's on the same
 file and config, with greedy decoding and with ``--decoder
 ctc_beam_search`` (configs/conformer.yml's beam conf: beam 300 and a .klm
 LM that is absent, so both decode without an LM, and the port names the
-file in a warning); the options not ported yet raise; ``strtobool`` parses
-``bool`` options as ``distutils.util.strtobool`` did."""
+file in a warning) and with ``--decoder attention_rescoring``;
+``--is_long_audio``, ``--use_pun`` and ``--is_itn`` give the JAX
+predictor's texts; ``strtobool`` parses ``bool`` options as
+``distutils.util.strtobool`` did."""
 import os
 import sys
 
@@ -73,8 +75,39 @@ def test_beam_search_cli_matches_jax(setup, monkeypatch):
 
 @pytest.mark.parametrize('option', ['is_long_audio', 'use_pun', 'is_itn'])
 def test_unported_options_raise(setup, option):
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue A item 14'):
-        infer_path.main(setup[0] + [f'--{option}', 'true'])
+    """The three options that raised until they were ported: each now runs
+    and gives the text the JAX predictor gives with it."""
+    args, wav, jax_pred = setup
+    got = infer_path.main(args + [f'--{option}', 'true'])
+    if option == 'is_long_audio':
+        want = jax_pred.predict_long(wav)
+    else:
+        want = jax_pred.predict(wav, **{option: True})
+    assert got['text'] == want['text'] and len(want['text']) > 5
+
+
+def test_rescoring_cli_matches_jax(setup, tmp_path):
+    """configs/conformer.yml with its beam cut from 300 to 16 and the
+    hypotheses to 64 tokens, which keeps the CPU run short."""
+    args, wav, _ = setup
+    with open(CONFIG, encoding='utf-8') as f:
+        text = f.read()
+    assert 'beam_size: 300' in text
+    config = tmp_path / 'conformer_beam16.yml'
+    config.write_text(text.replace(
+        'beam_size: 300', 'beam_size: 16\n  max_hyp_len: 64'),
+        encoding='utf-8')
+    rescore_args = [str(config) if a == CONFIG else
+                    'attention_rescoring' if a == 'ctc_greedy' else a
+                    for a in args]
+    got = infer_path.main(rescore_args + ['--is_long_audio', 'true',
+                                          '--use_pun', 'true'])
+    jax_pred = JaxPredictor(configs=str(config), model_path=args[3],
+                            decoder='attention_rescoring')
+    want = jax_pred.predict_long(wav, use_pun=True)
+    assert got['text'] == want['text'] and len(want['text']) > 5
+    np.testing.assert_allclose(got['score'], want['score'], rtol=1e-5,
+                               atol=1e-4)
 
 
 def test_strtobool():

@@ -56,7 +56,14 @@ def test_import_leaves_no_forbidden_module_loaded():
             "ppasr_tpu_torch.decoders.lm, ppasr_tpu_torch.decoders.klm, "
             "ppasr_tpu_torch.decoders.beam_search, "
             "ppasr_tpu_torch.decoders.native, "
-            "ppasr_tpu_torch.decoders.beam_search_torch;"
+            "ppasr_tpu_torch.decoders.beam_search_torch, "
+            "ppasr_tpu_torch.decoders.rescoring, "
+            "ppasr_tpu_torch.models.transformer_decoder, "
+            "ppasr_tpu_torch.models.rescore, ppasr_tpu_torch.ops.common, "
+            "ppasr_tpu_torch.utils.itn, "
+            "ppasr_tpu_torch.infer_utils.pun_predictor, "
+            "ppasr_tpu_torch.infer_utils.silero, "
+            "ppasr_tpu_torch.infer_utils.vad_predictor;"
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,

@@ -39,11 +39,9 @@ def _build(streaming=True, enc=ENC, seed=0):
                      jnp.asarray([64]), jnp.asarray([[1, 2]]),
                      jnp.asarray([2]), deterministic=True)
     params = jax.tree.map(np.asarray, params)
-    tm = ConformerModel(D, V, streaming, dict(enc), cmvn_mean=mean,
-                        cmvn_istd=istd)
-    state, skipped = convert_params(params)
-    tm.load_state_dict(state, strict=True)
-    assert skipped and all(p.startswith('decoder/') for p in skipped)
+    tm = ConformerModel(D, V, streaming, dict(enc), dict(DEC),
+                        cmvn_mean=mean, cmvn_istd=istd)
+    tm.load_state_dict(convert_params(params), strict=True)
     return jm, params, tm.eval()
 
 
@@ -146,8 +144,7 @@ def test_subsampling_flatten_order_matches_jax():
                                                 jnp.asarray(x)))
     assert params['params']['Dense_0']['kernel'].shape == (19 * 8, 8)
     tsub = Conv2dSubsampling4(D, 8)
-    state, _ = convert_params(params)
-    tsub.load_state_dict(state, strict=True)
+    tsub.load_state_dict(convert_params(params), strict=True)
     with torch.no_grad():
         yt = tsub(torch.from_numpy(x)).numpy()
     yj = np.asarray(jsub.apply(params, jnp.asarray(x)))

@@ -9,7 +9,10 @@ The beam-search cases (``decoder='ctc_beam_search'``) run both predictors
 with the same ``decoder_configs``, with and without a random trigram LM over
 the artifact's letters, on both frontends: texts identical, scores within
 1e-4 absolute plus 1e-5 relative. The host and native backends and the
-routing of a ``.klm`` LM to the native one are checked the same way."""
+routing of a ``.klm`` LM to the native one are checked the same way, and so
+are ``decoder='attention_rescoring'`` and ``compute_dtype='bfloat16'``
+(texts identical, in bf16 or differing only at near ties:
+tests/test_torch_{rescoring,bf16}.py hold them to their tolerances), and punctuation and ITN (texts identical)."""
 import os
 import sys
 import threading
@@ -18,8 +21,11 @@ import numpy as np
 import pytest
 import torch
 
+import ppasr_tpu.decoders.greedy as jax_greedy
+import ppasr_tpu.predict as jax_predict
 from ppasr_tpu.predict import PPASRPredictor as JaxPredictor
 from ppasr_tpu_torch import predict as port_predict
+from ppasr_tpu_torch.decoders import greedy as port_greedy
 from ppasr_tpu_torch.decoders.beam_search import BeamSearchDecoder
 from ppasr_tpu_torch.decoders.beam_search_torch import TorchBeamSearchDecoder
 from ppasr_tpu_torch.decoders.klm import write_klm_from_scorer
@@ -29,6 +35,7 @@ from ppasr_tpu_torch.ops import fbank_cuda
 from ppasr_tpu_torch.predict import PPASRPredictor
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import make_torch_smoke_fixture as fx  # noqa: E402
 from torch_tiny_artifact import CHARS, random_arpa  # noqa: E402
 from torch_tiny_artifact import speechlike as _speechlike  # noqa: E402
 from torch_tiny_artifact import write_artifact  # noqa: E402
@@ -84,9 +91,10 @@ def test_host_frontend_stream_matches_jax(artifact):
 
 
 def test_unported_decoders_raise(artifact):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        PPASRPredictor(model_path=artifact, use_gpu=False,
-                       decoder='attention_rescoring')
+    """Every decoder of the JAX predictor is ported: an unknown one, an
+    unknown beam backend and a model_tag download still raise."""
+    with pytest.raises(NotImplementedError, match='network'):
+        PPASRPredictor(model_path=artifact, use_gpu=False, model_tag='x')
     with pytest.raises(ValueError, match='unknown decoder'):
         PPASRPredictor(model_path=artifact, use_gpu=False, decoder='other')
     with pytest.raises(ValueError, match='backend'):
@@ -233,3 +241,69 @@ def test_ieee_float32_keeps_tf32_off_while_any_thread_is_inside(monkeypatch):
     assert seen == {'after_a_left': (False, False),
                     'main_with_b_inside': (False, False)}
     assert _flags() == (True, True)
+
+
+@pytest.mark.parametrize('decoder,dtype', [
+    ('attention_rescoring', 'float32'), ('ctc_greedy', 'bfloat16')])
+def test_rescoring_and_bf16_predict_match_jax(artifact, decoder, dtype):
+    conf = dict(BEAM_CONF, max_hyp_len=64) if decoder != 'ctc_greedy' \
+        else None
+    jax_pred = JaxPredictor(model_path=artifact, use_device_frontend=True,
+                            decoder=decoder, decoder_configs=conf,
+                            compute_dtype=dtype)
+    port_pred = PPASRPredictor(model_path=artifact, use_gpu=False,
+                               use_device_frontend=True, decoder=decoder,
+                               decoder_configs=conf, compute_dtype=dtype)
+    pcm = _speechlike(int(2.1 * 16000), 8)
+
+    def texts(pred):
+        return [pred.predict(pcm)['text'],
+                [r['text'] for r in _stream(pred, pcm)][-1]]
+    if dtype == 'float32':
+        want = texts(jax_pred)
+        assert texts(port_pred) == want and len(want[0]) > 5
+    else:       # bfloat16: equal, or differing only at near ties
+        got, bad = fx.texts_under_near_ties(
+            lambda: texts(jax_pred), (jax_predict, jax_greedy),
+            lambda: texts(port_pred), (port_predict, port_greedy))
+        assert not bad and len(got[0]) > 5
+
+
+def test_punctuation_and_itn_match_jax(predictors, artifact):
+    """``use_pun`` and ``is_itn`` on ``predict`` and ``predict_stream``
+    (the JAX device-frontend stream drops both, so the stream is compared
+    on the host frontend); the punctuation model sits on the predictor's
+    device."""
+    jax_pred, port_pred = predictors
+    pcm = _speechlike(int(2.4 * 16000), 9)
+    for opts in ({'use_pun': True, 'is_itn': True},):
+        want = jax_pred.predict(pcm, **opts)
+        assert port_pred.predict(pcm, **opts) == {
+            'text': want['text'], 'score': pytest.approx(want['score'],
+                                                         abs=1e-2)}
+    assert port_pred._pun_predictor.device == port_pred.device
+    jax_host = JaxPredictor(model_path=artifact)
+    port_host = PPASRPredictor(model_path=artifact, use_gpu=False,
+                               use_pun=True)
+    assert port_host._pun_predictor is not None
+
+    def final(pred):
+        pred.reset_stream()
+        for i in range(0, len(pcm), 2560):
+            out = pred.predict_stream(pcm[i:i + 2560], use_pun=True,
+                                      is_itn=True,
+                                      is_end=i + 2560 >= len(pcm))
+        return out['text']
+    assert final(port_host) == final(jax_host)
+    assert final(port_pred) == final(port_host)
+
+
+def test_ieee_float32_keeps_bf16_reductions_in_float32(monkeypatch):
+    """cuBLAS may reduce bf16 products in bf16; the context turns that off
+    with TF32 and restores the process' setting."""
+    matmul = torch.backends.cuda.matmul
+    monkeypatch.setattr(matmul, 'allow_bf16_reduced_precision_reduction',
+                        True)
+    with port_predict.ieee_float32():
+        assert not matmul.allow_bf16_reduced_precision_reduction
+    assert matmul.allow_bf16_reduced_precision_reduction

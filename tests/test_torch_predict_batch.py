@@ -8,6 +8,11 @@ With ``decoder='ctc_beam_search'`` (the port's on-device search from the
 CTC logits, ``get_encoder_logits``) and a random trigram LM: texts
 identical, log-prob scores within 1e-4 absolute plus 1e-5 relative.
 
+With ``decoder='attention_rescoring'``: texts identical, scores within 1e-4
+absolute plus 1e-5 relative; with ``compute_dtype='bfloat16'``: texts equal
+or differing only at near ties (tests/test_torch_bf16.py); with ``use_pun``
+and ``is_itn``: texts identical.
+
 Also ``fbank_batch_torch`` against ``fbank_jax`` under the fbank tolerance
 of tests/test_torch_fbank.py (mean |Δ| < 1e-3, max < 0.05 log-mel), and the
 card path's flat-batch layout rebuilt from the plain per-frame function."""
@@ -19,14 +24,19 @@ import numpy as np
 import pytest
 import torch
 
+import ppasr_tpu.decoders.greedy as jax_greedy
+import ppasr_tpu.predict as jax_predict
 from ppasr_tpu.ops.fbank import fbank_jax
 from ppasr_tpu.predict import PPASRPredictor as JaxPredictor
+import ppasr_tpu_torch.decoders.greedy as port_greedy
+import ppasr_tpu_torch.predict as port_predict
 from ppasr_tpu_torch.decoders.beam_search_torch import TorchBeamSearchDecoder
 from ppasr_tpu_torch.ops import fbank as F
 from ppasr_tpu_torch.ops import fbank_cuda
 from ppasr_tpu_torch.predict import PPASRPredictor
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import make_torch_smoke_fixture as fx  # noqa: E402
 from make_torch_smoke_fixture import speechlike as speechlike_f32  # noqa
 from torch_tiny_artifact import (CHARS, random_arpa, speechlike,  # noqa
                                  write_artifact)
@@ -92,6 +102,46 @@ def test_predict_batch_beam_search_matches_jax(tmp_path, device, monkeypatch):
     np.testing.assert_allclose([r['score'] for r in got],
                                [r['score'] for r in want], rtol=1e-5,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize('mode', ['attention_rescoring', 'bfloat16'])
+@pytest.mark.parametrize('device', [False, True], ids=['host', 'device'])
+def test_predict_batch_rescoring_and_bf16_match_jax(tmp_path, device, mode):
+    artifact = write_artifact(tmp_path)
+    opts = dict(decoder='attention_rescoring', decoder_configs=dict(
+        beam_size=16, cutoff_top_n=12, cutoff_prob=0.99, alpha=0.3,
+        beta=1.5, max_hyp_len=64)) if mode == 'attention_rescoring' else dict(
+        compute_dtype='bfloat16')
+    jax_pred = JaxPredictor(model_path=artifact, use_device_frontend=device,
+                            **opts)
+    port_pred = PPASRPredictor(model_path=artifact, use_gpu=False,
+                               use_device_frontend=device, **opts)
+    audio = _utterances(3, seed=8)
+    before = fbank_cuda.launches
+    if mode == 'attention_rescoring':
+        got, want = port_pred.predict_batch(audio), \
+            jax_pred.predict_batch(audio)
+        assert [r['text'] for r in got] == [r['text'] for r in want]
+        np.testing.assert_allclose([r['score'] for r in got],
+                                   [r['score'] for r in want], rtol=1e-5,
+                                   atol=1e-4)
+    else:
+        got, bad = fx.texts_under_near_ties(
+            lambda: [r['text'] for r in jax_pred.predict_batch(audio)],
+            (jax_predict, jax_greedy),
+            lambda: [r['text'] for r in port_pred.predict_batch(audio)],
+            (port_predict, port_greedy))
+        assert not bad
+    assert fbank_cuda.launches == before
+
+
+@pytest.mark.parametrize('device', [False, True], ids=['host', 'device'])
+def test_predict_batch_punctuation_and_itn_match_jax(predictors, device):
+    jax_pred, port_pred = predictors[device]
+    audio = _utterances(3, seed=9)
+    for opts in ({'use_pun': True, 'is_itn': True},):
+        assert [r['text'] for r in port_pred.predict_batch(audio, **opts)] \
+            == [r['text'] for r in jax_pred.predict_batch(audio, **opts)]
 
 
 @pytest.mark.parametrize('device', [False, True], ids=['host', 'device'])
