@@ -72,7 +72,25 @@ is not 0:
    between them (``fx.long_recording``), without and with punctuation and
    ITN; the VAD's timestamps and both texts must equal the fixture's JAX
    ones, the Silero LSTM and the punctuation model must be on the card;
-12. timing, after the paths, whose real-time factors are thus read
+12. train (tests/fixtures/torch_train_batch.npz, 8 utterances, and its JAX
+   numbers; tolerances from tests/make_torch_train_fixture.py): the
+   committed flagship with dropout off, float32 under ``ieee_float32()``:
+   the step-0 loss, loss_ctc, loss_att, th_accuracy and gradient norm
+   through B1, 3 updates of the flagship's optimizer with accum_grad 2, and
+   step 0 again in bf16 (cast at use), each against JAX's;
+   ``PPASRTrainer.train`` on the flagship config as committed (bf16 AMP,
+   accum_grad 2, the device frontend with dither, SpecAugment and SpecSub,
+   the host audio augmentation; overwritten: paths, batch size 2, 2
+   epochs, the probe) over the 8 utterances as WAVs: finite losses, a
+   checkpoint that ``PPASRPredictor`` loads strictly and runs on the card;
+   memorization, a fresh full-width init, 40 updates on the batch: the
+   full-context loss must halve; then the timing of the real step (32 ×
+   accum_grad 2 utterances of 8 s joined from the fixture's PCM, bf16 and
+   float32: 2 warm-up steps, 5 timed, wall per step, audio-s/s, peak
+   memory, one ``torch.profiler`` step with its top 10 kernels), and the
+   port's CTC loss forward and backward beside ``F.ctc_loss`` at the
+   step's shape;
+13. timing, after the paths, whose real-time factors are thus read
    before the process first runs the profiler: at each shape of phase 3,
    three rounds time in turn the kernel, the plain version,
    ``torch.fft.rfft`` alone on the same frames, and the kernel again, each
@@ -80,9 +98,9 @@ is not 0:
    included) and the kernel and ``rfft`` also on the device alone
    (``device_ms``, from ``torch.profiler`` recording CUDA activity only);
    and the bound. The kernel table's ``ms`` is ``call_ms`` at the window,
-   its ``launches`` the launches of phases 4, 5 and 8–11 (one per streamed
-   window, one per batch), and its ``max_abs_err`` the largest of phases 3
-   and 5.
+   its ``launches`` the launches of phases 4, 5, 8–11 (one per streamed
+   window, one per batch) and 12 (one per micro-batch of the training
+   path), and its ``max_abs_err`` the largest of phases 3 and 5.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the one before it the kernel table as JSON; the last line is
@@ -91,9 +109,11 @@ the one before it the kernel table as JSON; the last line is
 """
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -101,20 +121,32 @@ import torch
 
 import ppasr_tpu_torch.decoders.greedy as greedy_module
 import ppasr_tpu_torch.predict as predict_module
+from ppasr_tpu_torch.config import load_config
+from ppasr_tpu_torch.data.audio import AudioSegment
+from ppasr_tpu_torch.data.dataset import collate_raw_fn
 from ppasr_tpu_torch.decoders.beam_search_torch import all_hypotheses
 from ppasr_tpu_torch.decoders.greedy import _collapse
+from ppasr_tpu_torch.models.factory import build_model
 from ppasr_tpu_torch.models.streaming_eval import streaming_greedy_batch
 from ppasr_tpu_torch.ops import fbank as F
 from ppasr_tpu_torch.ops import fbank_cuda
+from ppasr_tpu_torch.ops.ctc import ctc_loss_from_logits
+from ppasr_tpu_torch.ops.frontend import make_device_frontend
 from ppasr_tpu_torch.predict import PPASRPredictor, ieee_float32
 from ppasr_tpu_torch.serving import StreamingBatchEngine
+from ppasr_tpu_torch.train_state import create_train_state, make_train_step
+from ppasr_tpu_torch.trainer import PPASRTrainer
+from ppasr_tpu_torch.utils.checkpoint import (convert_params, load_msgpack,
+                                              write_inference_artifact)
 from ppasr_tpu_torch.utils.metrics import cer, edit_distance
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, 'tests'))
 import make_torch_smoke_fixture as fx  # noqa: E402  (no JAX at import)
+import make_torch_train_fixture as tf  # noqa: E402  (no JAX at import)
 
 BUILD = os.path.join(ROOT, 'build')
+AUGMENTATION = os.path.join(ROOT, 'configs', 'augmentation.json')
 
 # H100 SXM data sheet peaks
 PEAK_FP32_FLOPS = 67e12
@@ -186,12 +218,13 @@ def device_ms(fn, iters, launches_per_call, match=None, tries=3):
                        f"in each of {tries} sessions")
 
 
-def bound_ms(n_frames, input_samples, num_mel_bins=80):
+def bound_ms(n_frames, input_samples, num_mel_bins=80, noise_floats=0):
     """Least time for fbank on this card class: the larger of the bytes the
-    function must move (samples, window, each filter's band of weights and
-    its int32 band entry in, log-mel out) over the memory rate, and the fp32
-    operations of an FFT-based fbank over the fp32 peak. A real n-point FFT
-    counts 2.5·n·log2(n) operations."""
+    function must move (samples, the dither's noise where the launch has
+    one, window, each filter's band of weights and its int32 band entry
+    in, log-mel out) over the memory rate, and the fp32 operations of an
+    FFT-based fbank over the fp32 peak (the dither adds one a sample). A
+    real n-point FFT counts 2.5·n·log2(n) operations."""
     mel = F.get_mel_banks(num_mel_bins, 512, 16000.0)
     band, weights = fbank_cuda.mel_bands(mel[:, :fbank_cuda.N_BINS])
     nnz = weights.size
@@ -200,17 +233,18 @@ def bound_ms(n_frames, input_samples, num_mel_bins=80):
                        + 3 * 257            # power
                        + 2 * nnz            # mel projection
                        + 2 * num_mel_bins)  # floor and log
-    nbytes = (4 * (input_samples + 400 + nnz + n_frames * num_mel_bins)
-              + band.nbytes)
+    nbytes = (4 * (input_samples + noise_floats + 400 + nnz
+                   + n_frames * num_mel_bins) + band.nbytes)
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = n_frames * flops_per_frame / PEAK_FP32_FLOPS * 1e3
+    t_ops = (n_frames * flops_per_frame + noise_floats) / PEAK_FP32_FLOPS \
+        * 1e3
     return max(t_bytes, t_ops), ('operations' if t_ops >= t_bytes
                                  else 'bytes')
 
 
-def compare(name, got, plain, host):
+def compare(name, got, plain, host, host_name='fbank_numpy'):
     """max/mean |Δ| of the kernel against the plain version and the host
-    fbank_numpy; raises outside the bounds."""
+    reference (fbank_numpy); raises outside the bounds."""
     d_plain = (got - plain).abs()
     d_host = (got.cpu() - torch.from_numpy(host)).abs()
     row = {'max_abs_err': d_plain.max().item(),
@@ -218,7 +252,7 @@ def compare(name, got, plain, host):
            'max_abs_err_numpy': d_host.max().item(),
            'mean_abs_err_numpy': d_host.mean().item()}
     print(f"  {name}: vs plain max {row['max_abs_err']:.3g} mean "
-          f"{row['mean_abs_err']:.3g}; vs fbank_numpy max "
+          f"{row['mean_abs_err']:.3g}; vs {host_name} max "
           f"{row['max_abs_err_numpy']:.3g} mean "
           f"{row['mean_abs_err_numpy']:.3g}", flush=True)
     if not (torch.isfinite(got).all() and row['max_abs_err'] < MAX_TOL
@@ -318,9 +352,33 @@ def check_kernel(dev):
                        host=np.stack([F.fbank_numpy(w) for w in rows]),
                        iters=50))
 
+    # the training step's launch: fbank_batch over a micro-batch of 32
+    # utterances of 8 s in the collate bucket, with the dither's noise
+    # [32, T, 400], the same on both sides; the reference is the plain
+    # version on the host (fbank_numpy takes no given noise)
+    wav, _, wav_lens, _ = long_train_batch(32)
+    t_wavs = torch.from_numpy(wav.astype(np.float32)).to(dev)
+    t_lens = torch.from_numpy(wav_lens).to(dev)
+    k = t_wavs.shape[1] // 160
+    noise = torch.randn((32, k - 2, 400), device=dev,
+                        generator=torch.Generator(dev).manual_seed(3))
+    frames = F.frame_torch(t_wavs.view(1, -1), 400, 160, 32 * k - 2)[0] \
+        .contiguous()
+    shapes.append(dict(
+        shape=f'train N={32 * k - 2} stride 160 with noise',
+        n_frames=32 * k - 2, frame_stride=160, samples=t_wavs.numel(),
+        noise_floats=noise.numel(), frames=frames,
+        kernel=lambda: fbank_cuda.fbank_batch(t_wavs, t_lens,
+                                              noise=noise)[0],
+        plain=lambda: F.fbank_batch_torch(t_wavs, t_lens, noise=noise)[0],
+        host=F.fbank_batch_torch(t_wavs.cpu(), t_lens.cpu(),
+                                 noise=noise.cpu())[0].numpy(),
+        host_name='the plain version on the host', iters=20))
+
     for case in shapes:
-        case['errors'] = compare(case['shape'], case['kernel'](),
-                                 case['plain'](), case.pop('host'))
+        case['errors'] = compare(
+            case['shape'], case['kernel'](), case['plain'](),
+            case.pop('host'), case.pop('host_name', 'fbank_numpy'))
 
     # the 997 frames again from a view one sample into its storage, which
     # the kernel reads with 4-byte loads
@@ -338,8 +396,10 @@ def time_kernel(shapes):
     returns the table entry."""
     rows = []
     for case in shapes:
-        b_ms, b_by = bound_ms(case['n_frames'], case['samples'])
+        b_ms, b_by = bound_ms(case['n_frames'], case['samples'],
+                              noise_floats=case.get('noise_floats', 0))
         row = {k: case[k] for k in ('shape', 'n_frames', 'frame_stride')}
+        row['noise_floats'] = case.get('noise_floats', 0)
         row.update(bound_ms=b_ms, bound_by=b_by, **case['errors'],
                    **time_shape(case['shape'], case['kernel'], case['plain'],
                                 case['frames'], case['iters']))
@@ -922,6 +982,364 @@ def stream_eval_path(card, pred, data, pcms):
     expect('stream eval', texts, data, 'jax_stream_eval')
 
 
+# ------------------------------------------------------------------ train
+
+def train_tensors(dev):
+    """The training fixture's batch on ``dev``: (wav [8, S] int16, wav_lens,
+    text [8, U], text_lens)."""
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in tf.batch(tf.load())]
+
+
+def flagship_model(dev, dropout=True):
+    """The flagship from its committed checkpoint on ``dev`` (float32
+    parameters); ``dropout=False`` builds it with every dropout rate 0."""
+    conf = load_config(tf.CONFIG)
+    enc, dec = dict(conf.encoder_conf), dict(conf.decoder_conf)
+    if not dropout:
+        enc.update(dropout_rate=0.0, positional_dropout_rate=0.0,
+                   attention_dropout_rate=0.0)
+        dec.update(dropout_rate=0.0, positional_dropout_rate=0.0,
+                   self_attention_dropout_rate=0.0,
+                   src_attention_dropout_rate=0.0)
+    model = build_model('conformer', 80, len(fx.vocabulary()),
+                        streaming=True, encoder_conf=enc, decoder_conf=dec,
+                        model_conf=dict(conf.model_conf),
+                        mean_istd_path=os.path.join(ROOT, 'dataset',
+                                                    'mean_istd.json'))
+    return model, conf
+
+
+def global_norm(tensors):
+    return torch.sqrt(sum((t.double() ** 2).sum() for t in tensors)).item()
+
+
+def check_close(name, got, want, rtol):
+    ok = abs(got - want) <= rtol * abs(want)
+    print(f"  {name}: port {got:.7f}, JAX {want:.7f}, relative |Δ| "
+          f"{abs(got - want) / abs(want):.3g} (tolerance {rtol:g})",
+          flush=True)
+    if not (ok and np.isfinite(got)):
+        raise AssertionError(f"{name} disagrees with the fixture's JAX value")
+
+
+def train_parity(card, dev):
+    """Train phase, step 1: the committed flagship, dropout off, no dither
+    or augmentation, float32 under ``ieee_float32()``: the step-0 loss
+    terms, token accuracy and gradient norm over the fixture's 8
+    utterances through B1, then 3 updates of the flagship's optimizer with
+    accum_grad 2, then step 0 again computing in bf16 (cast at use),
+    each against the fixture's JAX numbers."""
+    data = tf.load()
+    wav, wav_lens, text, text_lens = train_tensors(dev)
+    n_tokens = int(text_lens.sum()) + tf.N_UTTS
+    frontend = make_device_frontend({'n_mels': 80})
+    state_dict = convert_params(load_msgpack(tf.CHECKPOINT))
+    for dtype in ('f32', 'bf16'):
+        model, conf = flagship_model(dev)
+        model.load_state_dict(state_dict, strict=True)
+        model.to(dev).eval()
+        if dtype == 'bf16':
+            model.set_compute_dtype(torch.bfloat16, at_use=True)
+        with ieee_float32():
+            feat, feat_lens = frontend(wav, wav_lens, deterministic=True)
+            out = model(feat, feat_lens, text, text_lens)
+            out['loss'].backward()
+        grad_norm = global_norm([p.grad for p in model.parameters()])
+        rtol = tf.F32_RTOL if dtype == 'f32' else tf.BF16_LOSS_RTOL
+        for k in ('loss', 'loss_ctc', 'loss_att'):
+            check_close(f"{dtype} step-0 {k}", out[k].item(),
+                        float(data[f'{dtype}_{k}']), rtol)
+        check_close(f"{dtype} step-0 gradient norm", grad_norm,
+                    float(data[f'{dtype}_grad_norm']),
+                    tf.F32_RTOL if dtype == 'f32' else tf.BF16_GRAD_NORM_RTOL)
+        acc, want = out['th_accuracy'].item(), float(data[f'{dtype}_th_'
+                                                          f'accuracy'])
+        print(f"  {dtype} step-0 th_accuracy: port {acc:.6f}, JAX "
+              f"{want:.6f} (tolerance one token in {n_tokens})", flush=True)
+        if abs(acc - want) > 1.0 / n_tokens + 1e-6:
+            raise AssertionError("th_accuracy disagrees with the fixture")
+
+    model, conf = flagship_model(dev)
+    model.load_state_dict(state_dict, strict=True)
+    model.to(dev)
+    start = [p.detach().clone() for p in model.parameters()]
+    state = create_train_state(model, dict(conf.optimizer_conf),
+                               float(conf.train_conf.grad_clip))
+    step = make_train_step(tf.ACCUM, frontend, deterministic=True)
+    batch = dict(zip(('wav', 'wav_lens', 'text', 'text_lens'),
+                     tf.micro_batches(train_tensors(dev))))
+    losses = []
+    for k in range(tf.N_UPDATES):
+        step(state, batch, k)
+        with torch.no_grad(), ieee_float32():
+            micro = []
+            for i in range(tf.ACCUM):
+                feat, feat_lens = frontend(batch['wav'][i],
+                                           batch['wav_lens'][i],
+                                           deterministic=True)
+                micro.append(model(feat, feat_lens, batch['text'][i],
+                                   batch['text_lens'][i])['loss'].item())
+        losses.append(float(np.mean(micro)))
+    for k, (got, want) in enumerate(zip(losses, data['update_losses'])):
+        check_close(f"loss after update {k + 1}", got, float(want),
+                    tf.UPDATE_RTOL)
+    check_close("update norm after 3 updates", global_norm(
+        [p.detach() - s for p, s in zip(model.parameters(), start)]),
+        float(data['update_norm']), tf.UPDATE_RTOL)
+
+
+def train_loop(card, dev):
+    """Train phase, step 2: ``PPASRTrainer.train`` with the flagship config
+    as committed (bf16 AMP, accum_grad 2, the device frontend with dither,
+    SpecAugment and SpecSub, the host audio augmentation) on the fixture's
+    8 utterances written as WAVs, 2 epochs; then ``PPASRPredictor`` loads
+    the written checkpoint strictly and transcribes them on the card."""
+    data = tf.load()
+    pcms = tf.pcms(data)
+    work = tempfile.mkdtemp(prefix='train_smoke_', dir=BUILD)
+    try:
+        manifest = os.path.join(work, 'manifest.train')
+        with open(manifest, 'w', encoding='utf-8') as f:
+            for i, (pcm, text) in enumerate(zip(pcms, data['texts'])):
+                wav = os.path.join(work, f'{i}.wav')
+                AudioSegment.from_ndarray(pcm).to_wav_file(wav)
+                f.write(json.dumps({'audio_filepath': wav,
+                                    'duration': len(pcm) / 16000,
+                                    'text': str(text)},
+                                   ensure_ascii=False) + '\n')
+        vocab = os.path.join(ROOT, 'dataset', 'vocabulary.txt')
+        istd = os.path.join(ROOT, 'dataset', 'mean_istd.json')
+        overwrites = ','.join([
+            f'dataset_conf.train_manifest={manifest}',
+            f'dataset_conf.test_manifest={manifest}',
+            f'dataset_conf.dataset_vocab={vocab}',
+            f'dataset_conf.mean_istd_path={istd}',
+            'dataset_conf.batch_size=2', 'train_conf.max_epoch=2',
+            'train_conf.train_probe_size=4'])
+        t0 = time.time()
+        trainer = PPASRTrainer(tf.CONFIG, use_gpu=True, overwrites=overwrites,
+                               data_augment_configs=AUGMENTATION)
+        state = trainer.train(save_model_path=os.path.join(work, 'models'))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        losses = [float(v) for v in trainer.step_losses]
+        print(f"  PPASRTrainer.train on {card}: {len(losses)} updates in 2 "
+              f"epochs, {wall:.2f} s; losses {[round(v, 4) for v in losses]}"
+              f"; compute {next(state.model.parameters()).dtype} parameters "
+              f"in {state.model.encoder.dtype}", flush=True)
+        if len(losses) < 4 or not np.isfinite(losses).all():
+            raise AssertionError(f"train losses {losses}")
+        base = os.path.join(work, 'models', trainer.model_dir_name)
+        last = os.path.join(base, 'last_model', 'model.msgpack')
+        for path in (last, os.path.join(base, 'best_model', 'model.msgpack'),
+                     os.path.join(base, 'last_model', 'optimizer.pt')):
+            if not os.path.exists(path):
+                raise AssertionError(f"the trainer wrote no {path}")
+        artifact = write_inference_artifact(
+            os.path.join(work, 'infer'), load_config(tf.CONFIG), last,
+            vocab, istd)
+        pred = PPASRPredictor(model_path=artifact, use_gpu=True,
+                              use_device_frontend=True)
+        texts = [pred.predict(p)['text'] for p in pcms]
+        print(f"  PPASRPredictor on the written checkpoint, {pred.device}: "
+              f"{texts}", flush=True)
+        if pred.device.type != 'cuda' or not all(isinstance(t, str)
+                                                 for t in texts):
+            raise AssertionError("the trained checkpoint did not transcribe "
+                                 "on the card")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def memorize(card, dev, updates=40):
+    """Train phase, step 3: a fresh full-width init (the JAX model's
+    distributions), dropout off, bf16 over float32 parameters, Adam at
+    1e-3 after 5 warm-up steps; ``updates`` updates on one batch of the 8
+    utterances' B1 features. The full-context loss must fall below half
+    its first value."""
+    model, conf = flagship_model(dev, dropout=False)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.to(dev).set_compute_dtype(torch.bfloat16, at_use=True)
+    wav, wav_lens, text, text_lens = train_tensors(dev)
+    with ieee_float32():
+        feat, feat_lens = make_device_frontend({'n_mels': 80})(
+            wav, wav_lens, deterministic=True)
+    state = create_train_state(model, {
+        'optimizer': 'Adam', 'weight_decay': 1e-6, 'learning_rate': 1e-3,
+        'scheduler': 'CosineWithWarmup',
+        'scheduler_conf': {'warmup_steps': 5, 'T_max': 10000}}, 5.0)
+    batch = {'speech': feat[None], 'speech_lens': feat_lens[None],
+             'text': text[None], 'text_lens': text_lens[None]}
+
+    def full_context_loss():
+        model.eval()
+        with torch.no_grad(), ieee_float32():
+            return model(feat, feat_lens, text, text_lens)['loss'].item()
+    first = full_context_loss()
+    step = make_train_step(1)
+    t0 = time.time()
+    curve = [step(state, batch, i)['loss'] for i in range(updates)]
+    curve = [round(float(v), 3) for v in curve]
+    wall = time.time() - t0
+    last = full_context_loss()
+    print(f"  memorization on {card}: full-context loss {first:.4f} → "
+          f"{last:.4f} after {updates} updates ({wall:.2f} s); train losses "
+          f"{curve}", flush=True)
+    if not (np.isfinite(curve).all() and last < 0.5 * first):
+        raise AssertionError(f"the loss did not halve: {first} → {last}")
+
+
+def long_train_batch(n_rows, seconds=8.0):
+    """``n_rows`` utterances of ``seconds`` each, joined from the fixture's
+    PCM and its token ids in turn, padded as the trainer pads them."""
+    data = tf.load()
+    pcms, ids = tf.pcms(data), [
+        data['tokens'][i, :int(data['token_lens'][i])]
+        for i in range(tf.N_UTTS)]
+    n = int(seconds * 16000)
+    rows, labels = [], []
+    j = 0
+    for _ in range(n_rows):
+        pcm, lab = [], []
+        while sum(len(p) for p in pcm) < n:
+            pcm.append(pcms[j % tf.N_UTTS])
+            lab.append(ids[j % tf.N_UTTS])
+            j += 1
+        rows.append((np.concatenate(pcm)[:n].astype(np.float32),
+                     np.concatenate(lab).astype(np.int32)))
+    return collate_raw_fn(rows)
+
+
+def profile_step(fn):
+    """(device ms, launches, top-10 kernels by device time) of one call of
+    ``fn()``, from torch.profiler recording CUDA activity only."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(r[1] for r in rows)
+    if total <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    rows.sort(key=lambda r: -r[1])
+    return total / 1e3, sum(r[2] for r in rows), rows[:10]
+
+
+def train_timing(card, dev, rows=32):
+    """Train phase, step 4 (after the paths, so the profiler runs last):
+    the flagship's real step, batch 32 × accum_grad 2 of 8 s utterances,
+    the device frontend with dither and SpecAugment/SpecSub, in bf16 (the
+    recipe) and in float32: 2 warm-up steps, then 5 timed, the wall per
+    step, audio-s/s, peak memory, and one profiled step; B1 at this
+    step's launch shape with noise; the port's CTC loss beside
+    ``F.ctc_loss``."""
+    conf = load_config(tf.CONFIG)
+    wav, labels, wav_lens, label_lens = long_train_batch(rows * tf.ACCUM)
+    batch = {k: torch.from_numpy(v).to(dev).reshape(tf.ACCUM, rows,
+                                                    *v.shape[1:])
+             for k, v in (('wav', wav), ('wav_lens', wav_lens),
+                          ('text', labels), ('text_lens', label_lens))}
+    audio_s = float(wav_lens.sum()) / 16000
+    with open(AUGMENTATION, encoding='utf-8') as f:
+        frontend = make_device_frontend(dict(conf.preprocess_conf),
+                                        json.load(f))
+    state_dict = convert_params(load_msgpack(tf.CHECKPOINT))
+    out = {}
+    for name, amp in (('bf16', True), ('float32', False)):
+        model, _ = flagship_model(dev)
+        model.load_state_dict(state_dict, strict=True)
+        model.to(dev)
+        if amp:
+            model.set_compute_dtype(torch.bfloat16, at_use=True)
+        state = create_train_state(model, dict(conf.optimizer_conf), 5.0)
+        step = make_train_step(tf.ACCUM, frontend)
+        for i in range(2):
+            step(state, batch, i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        for i in range(5):
+            metrics = step(state, batch, 2 + i)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) / 5
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        dev_ms, launches, top = profile_step(
+            lambda: step(state, batch, 7))
+        loss = float(metrics['loss'])
+        print(f"  {name} step on {card}: {rows} × accum {tf.ACCUM} of "
+              f"{audio_s / rows / tf.ACCUM:.1f} s utterances, "
+              f"{list(wav.shape)} int16 samples: wall {wall * 1e3:.2f} ms "
+              f"per step (5 after 2 warm-up), {audio_s / wall:.1f} audio-s/s,"
+              f" peak memory {peak:.2f} GiB, loss {loss:.4f}; one profiled "
+              f"step {dev_ms:.2f} ms on the device in {launches} launches",
+              flush=True)
+        for key, us, count in top:
+            print(f"    {us / 1e3:9.3f} ms {count:6d}× {key[:100]}",
+                  flush=True)
+        if not np.isfinite(loss):
+            raise AssertionError(f"{name} train step loss {loss}")
+        out[name] = dict(wall_ms=wall * 1e3, audio_s_per_s=audio_s / wall,
+                         peak_gib=peak, device_ms=dev_ms, launches=launches)
+        del model, state
+        torch.cuda.empty_cache()
+
+    # the CTC loss at this step's shape: [32, T', V] logits of a micro-batch
+    t_out = (((wav.shape[1] // 160 - 2) - 1) // 2 - 1) // 2
+    gen = torch.Generator(dev).manual_seed(1)
+    logits = torch.randn((rows, t_out, len(fx.vocabulary())), device=dev,
+                         generator=gen) * 3
+    in_lens = torch.full((rows,), t_out, device=dev)
+    text = batch['text'][0]
+    text_lens = batch['text_lens'][0]
+
+    def port_ctc():
+        x = logits.detach().requires_grad_()
+        ctc_loss_from_logits(x, in_lens, text, text_lens).backward()
+
+    def torch_ctc():
+        x = logits.detach().requires_grad_()
+        (torch.nn.functional.ctc_loss(
+            torch.log_softmax(x, -1).transpose(0, 1),
+            torch.clamp(text, min=0), in_lens, text_lens,
+            reduction='sum') / rows).backward()
+    port_ms = call_ms(port_ctc, 10, warmup=2)
+    lib_ms = call_ms(torch_ctc, 10, warmup=2)
+    port_dev, port_launches, _ = profile_step(port_ctc)
+    lib_dev, lib_launches, _ = profile_step(torch_ctc)
+    print(f"  CTC loss forward + backward at [{rows}, {t_out}, "
+          f"{logits.shape[2]}], U ≤ {text.shape[1]}: the port's "
+          f"{port_ms:.3f} ms per call ({port_dev:.3f} ms on the device in "
+          f"{port_launches} launches), F.ctc_loss {lib_ms:.3f} ms per call "
+          f"({lib_dev:.3f} ms on the device in {lib_launches} launches)",
+          flush=True)
+    out['ctc'] = dict(port_ms=port_ms, torch_ms=lib_ms, port_device_ms=port_dev,
+                      torch_device_ms=lib_dev)
+    return out
+
+
+def train_path(card, dev):
+    """Train phase: steps 1–3 (``train_timing`` runs with the timing
+    phase). Returns B1's launches on the training path."""
+    fbank_cuda.launches = 0
+    t0 = time.time()
+    train_parity(card, dev)
+    print(f"  parity: {time.time() - t0:.2f} s", flush=True)
+    t0 = time.time()
+    train_loop(card, dev)
+    print(f"  train loop: {time.time() - t0:.2f} s", flush=True)
+    t0 = time.time()
+    memorize(card, dev)
+    print(f"  memorization: {time.time() - t0:.2f} s", flush=True)
+    launches = fbank_cuda.launches
+    print(f"  fbank launches on the training path: {launches}", flush=True)
+    if launches == 0:
+        raise AssertionError("the training path never launched kernel B1")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -987,6 +1405,11 @@ def main():
     t0 = time.time()
     launches += long_path(card, pred, data, pcms)
     phase('long', t0)
+
+    t0 = time.time()
+    launches += train_path(card, dev)
+    train_timing(card, dev)
+    phase('train', t0)
 
     t0 = time.time()
     entry = time_kernel(shapes)

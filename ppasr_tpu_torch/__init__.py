@@ -14,8 +14,12 @@ compute), offline, batched (``predict_batch``), long-audio through Silero
 VAD (``predict_long``) and streaming, with punctuation and ITN; the
 multi-stream engine (``serving``), the batched streaming eval
 (``models/streaming_eval``), CER and WER (``utils/metrics``) and the CLI
-``python -m ppasr_tpu_torch.infer_path``. See ROADMAP.md for what is still
-to come.
+``python -m ppasr_tpu_torch.infer_path``; training in one process
+(``trainer.PPASRTrainer``, ``python -m ppasr_tpu_torch.train``): the CTC and
+label-smoothed attention losses, the device frontend (B1 with the training
+dither, SpecAugment, SpecSub), AdamW with its schedules, gradient
+accumulation and bf16 over float32 parameters. See ROADMAP.md for what is
+still to come.
 """
 
 __version__ = "0.1.0"

@@ -13,6 +13,8 @@ and scipy:
 
 Anchors, tags, multi-line scalars and multi-document streams raise.
 """
+import json
+import os
 import re
 
 from ppasr_tpu_torch.utils.common import AttrDict, dict_to_object
@@ -224,3 +226,12 @@ def load_config(path_or_dict) -> AttrDict:
         if key not in cfg:
             raise ValueError(f"config missing required section/key: {key}")
     return dict_to_object(cfg)
+
+
+def load_augmentation_config(path: str) -> list:
+    """The JSON augmentation pipeline spec (configs/augmentation.json), or
+    [] when ``path`` is None or absent (ppasr_tpu/config.py:33-38)."""
+    if path is None or not os.path.exists(path):
+        return []
+    with open(path, "r", encoding="utf-8") as f:
+        return json.load(f)

@@ -9,6 +9,14 @@
 // stride 400 reads a [N, 400] frame matrix and stride 160 reads the frames
 // straight out of a waveform (fusing the framing step).
 //
+// Training dither (ppasr_tpu/ops/fbank.py:262-264): with a noise pointer,
+// frame f adds its own row of 400 Gaussian draws right after the load,
+// before the DC mean, so two frames that share samples get independent
+// noise. Frames come in groups of noise_group (the k = S / 160 frames of one
+// row of a flat batch); frame t of group g reads noise row g * noise_rows + t
+// and frames with t >= noise_rows (those that straddle two rows and are
+// dropped) add none. The noise costs 1,600 bytes a frame of extra reads.
+//
 // What bounds it: bytes. An FFT-based fbank does about 15k fp32 operations
 // per frame against 1.6 KB read, under the card's 20 operations a byte.
 // The design keeps everything after the load in registers and a small
@@ -127,7 +135,9 @@ fbank_kernel(const float* __restrict__ wav, long long frame_stride,
              int n_frames, const float* __restrict__ window,
              const int* __restrict__ mel_band,
              const float* __restrict__ mel_w, int n_mels, float preemph,
-             int remove_dc, float* __restrict__ out) {
+             int remove_dc, const float* __restrict__ noise,
+             long long noise_stride, int noise_group, int noise_rows,
+             float* __restrict__ out) {
   __shared__ float2 tw[kTwRows][32];
   __shared__ int band_first[kMaxMels];
   __shared__ int band_len[kMaxMels];
@@ -165,6 +175,11 @@ fbank_kernel(const float* __restrict__ wav, long long frame_stride,
   const long long f = (long long)blockIdx.x * kWarps + warp;
   if (f >= n_frames) return;
   const float* x = wav + f * frame_stride;
+  const float* nz = nullptr;
+  if (noise != nullptr) {
+    const long long g = f / noise_group, t = f - g * noise_group;
+    if (t < noise_rows) nz = noise + (g * noise_rows + t) * noise_stride;
+  }
 
   // lane t holds z[t + 32 j] = (x[2n], x[2n+1]), n = t + 32 j < 200
   float2 a[8];
@@ -176,6 +191,10 @@ fbank_kernel(const float* __restrict__ wav, long long frame_stride,
     if (n < kHalf) {
       v = kAligned ? __ldg(reinterpret_cast<const float2*>(x) + n)
                    : make_float2(__ldg(x + 2 * n), __ldg(x + 2 * n + 1));
+      if (nz != nullptr) {
+        v.x += __ldg(nz + 2 * n);
+        v.y += __ldg(nz + 2 * n + 1);
+      }
     }
     a[j] = v;
     sum += v.x + v.y;
@@ -287,16 +306,24 @@ fbank_kernel(const float* __restrict__ wav, long long frame_stride,
 // wav: first sample of frame 0; frame f reads wav[f*frame_stride, +400).
 // window: [400] povey window, 8-byte aligned. mel_band: [n_mels, 3] int32
 // (first bin, length, offset into mel_w) of each filter's nonzero run;
-// mel_w: the packed weights, at most 512. out: [n_frames, n_mels].
+// mel_w: the packed weights, at most 512. noise: null for no dither, else
+// rows of 400 floats noise_stride apart, noise_rows rows for each group of
+// noise_group frames (see the header). out: [n_frames, n_mels].
 // Returns cudaGetLastError() after the launch.
 extern "C" int fbank_launch(const float* wav, long long frame_stride,
                             int n_frames, const float* window,
                             const int* mel_band, const float* mel_w,
                             int n_mels, float preemph, int remove_dc,
-                            float* out, void* stream) {
+                            const float* noise, long long noise_stride,
+                            int noise_group, int noise_rows, float* out,
+                            void* stream) {
   if (n_frames <= 0) return 0;
   if (n_mels <= 0 || n_mels > kMaxMels ||
       reinterpret_cast<std::uintptr_t>(window) % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (noise != nullptr &&
+      (noise_group <= 0 || noise_rows < 0 || noise_rows > noise_group ||
+       noise_stride < kWin))
     return (int)cudaErrorInvalidValue;
   const unsigned blocks =
       (unsigned)(((long long)n_frames + kWarps - 1) / kWarps);
@@ -306,11 +333,13 @@ extern "C" int fbank_launch(const float* wav, long long frame_stride,
   if (aligned) {
     fbank_kernel<true><<<blocks, kThreads, 0, s>>>(
         wav, frame_stride, n_frames, window, mel_band, mel_w, n_mels,
-        preemph, remove_dc, out);
+        preemph, remove_dc, noise, noise_stride, noise_group, noise_rows,
+        out);
   } else {
     fbank_kernel<false><<<blocks, kThreads, 0, s>>>(
         wav, frame_stride, n_frames, window, mel_band, mel_w, n_mels,
-        preemph, remove_dc, out);
+        preemph, remove_dc, noise, noise_stride, noise_group, noise_rows,
+        out);
   }
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,17 @@
 """In-memory mono float32 audio segment.
 
-Copy of what the predictor uses of ppasr_tpu/data/audio.py:23-395:
-``from_ndarray``, ``from_pcm_bytes``, ``from_file``, ``normalize``,
-``resample`` (scipy polyphase), ``to``. ``from_file`` reads integer-PCM WAV
+Copy of what the predictor and the trainer use of
+ppasr_tpu/data/audio.py:23-395: ``from_ndarray``, ``from_pcm_bytes``,
+``from_file``, ``slice_from_file``, ``to_wav_file``, ``normalize``,
+``resample`` (scipy polyphase), ``to``, and the transforms that the audio
+augmentors call: ``gain_db``, ``change_speed`` (linear interpolation),
+``shift``, ``subsegment``, ``random_subsegment`` and ``add_noise``. ``from_file`` reads integer-PCM WAV
 through the standard ``wave`` module, falls back to ``scipy.io.wavfile``
 for the WAV formats ``wave`` rejects (float WAV), and then to an ``ffmpeg``
 subprocess for other containers (mp3, flac, opus) where ffmpeg is installed
 (``_read_wav`` and ``_read_via_ffmpeg``, :347-395 there).
 """
+import random
 import shutil
 import struct
 import subprocess
@@ -36,6 +40,30 @@ class AudioSegment:
         return cls(samples, sr)
 
     @classmethod
+    def slice_from_file(cls, file, start=None, end=None) -> "AudioSegment":
+        """The [start, end] seconds of a WAV file, read by seeking (negative
+        times count from the end)."""
+        with wave.open(file, "rb") as wf:
+            sr = wf.getframerate()
+            duration = wf.getnframes() / sr
+            start = 0.0 if start is None else start
+            end = duration if end is None else end
+            if start < 0.0:
+                start += duration
+            if end < 0.0:
+                end += duration
+            start = max(0.0, start)
+            end = min(duration, end)
+            if end < start:
+                raise ValueError(f"slice end ({end}) < start ({start})")
+            start_frame = int(start * sr)
+            wf.setpos(start_frame)
+            data = wf.readframes(int(end * sr) - start_frame)
+            samples = _decode_frames(data, wf.getsampwidth(),
+                                     wf.getnchannels())
+        return cls(samples, sr)
+
+    @classmethod
     def from_pcm_bytes(cls, data: bytes, channels=1, samp_width=2,
                        sample_rate=16000) -> "AudioSegment":
         """Raw PCM bytes → segment."""
@@ -54,11 +82,78 @@ class AudioSegment:
         featurizers consume int16-scaled float samples."""
         return self._convert_samples_from_float32(self._samples, dtype)
 
+    def to_wav_file(self, filepath, dtype="int16"):
+        samples = self._convert_samples_from_float32(self._samples, dtype)
+        with wave.open(filepath, "wb") as wf:
+            wf.setnchannels(1)
+            wf.setsampwidth({"int16": 2, "int32": 4}[dtype])
+            wf.setframerate(self._sample_rate)
+            wf.writeframes(samples.tobytes())
+
     # --------------------------------------------------------------- transforms
 
     def gain_db(self, gain: float):
         """Apply gain in dB in place."""
         self._samples *= 10. ** (gain / 20.)
+
+    def change_speed(self, speed_rate: float):
+        """Time-stretch by linear interpolation."""
+        if speed_rate == 1.0:
+            return
+        if speed_rate <= 0:
+            raise ValueError("speed_rate must be positive")
+        old_length = self._samples.shape[0]
+        new_length = int(old_length / speed_rate)
+        self._samples = np.interp(np.linspace(0, old_length, new_length),
+                                  np.arange(old_length),
+                                  self._samples).astype(np.float32)
+
+    def shift(self, shift_ms: float):
+        """Shift in time, zero-filling the vacated span."""
+        shift_samples = int(shift_ms * self._sample_rate / 1000)
+        if abs(shift_samples) > self.num_samples:
+            raise ValueError("shift_ms exceeds audio duration")
+        if shift_samples > 0:
+            self._samples[shift_samples:] = self._samples[:-shift_samples]
+            self._samples[:shift_samples] = 0
+        elif shift_samples < 0:
+            self._samples[:shift_samples] = self._samples[-shift_samples:]
+            self._samples[shift_samples:] = 0
+
+    def subsegment(self, start_sec=None, end_sec=None):
+        """Cut to [start, end] seconds in place."""
+        start_sec = 0.0 if start_sec is None else start_sec
+        end_sec = self.duration if end_sec is None else end_sec
+        if start_sec < 0.0:
+            start_sec += self.duration
+        if end_sec < 0.0:
+            end_sec += self.duration
+        if start_sec < 0.0 or end_sec > self.duration or end_sec < start_sec:
+            raise ValueError(f"bad subsegment bounds [{start_sec}, {end_sec}]")
+        self._samples = self._samples[int(round(start_sec * self._sample_rate)):
+                                      int(round(end_sec * self._sample_rate))]
+
+    def random_subsegment(self, subsegment_length: float):
+        """A cut of the given duration at a random start (``random``)."""
+        if subsegment_length > self.duration:
+            raise ValueError("subsegment length > audio duration")
+        start_time = random.uniform(0.0, self.duration - subsegment_length)
+        self.subsegment(start_time, start_time + subsegment_length)
+
+    def add_noise(self, noise: "AudioSegment", snr_dB: float,
+                  max_gain_db=300.0):
+        """Overlay a random cut of ``noise`` (at least as long as this
+        segment) at the given SNR."""
+        if noise.sample_rate != self.sample_rate:
+            raise ValueError("noise sample rate mismatch")
+        if noise.duration < self.duration:
+            raise ValueError("noise shorter than audio")
+        noise_gain_db = min(self.rms_db - noise.rms_db - snr_dB, max_gain_db)
+        noise_new = AudioSegment(noise.samples.copy(), noise.sample_rate)
+        noise_new.random_subsegment(self.duration)
+        noise_new.gain_db(noise_gain_db)
+        n = min(self.num_samples, noise_new.num_samples)
+        self._samples[:n] += noise_new.samples[:n]
 
     def normalize(self, target_db=-20, max_gain_db=300.0):
         """Gain to an RMS target in dBFS."""
@@ -92,6 +187,10 @@ class AudioSegment:
     @property
     def num_samples(self) -> int:
         return self._samples.shape[0]
+
+    @property
+    def duration(self) -> float:
+        return self._samples.shape[0] / float(self._sample_rate)
 
     @property
     def rms_db(self) -> float:

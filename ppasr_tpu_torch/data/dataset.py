@@ -1,0 +1,184 @@
+"""Dataset and collate: manifest entries → padded numpy batches
+(counterpart of ppasr_tpu/data/dataset.py:25-310).
+
+``ASRDataset`` yields (features [T, D] float32, token ids [U] int32), or in
+raw mode (``return_raw``, for the device frontend) (int16-scaled float32
+waveform [S], token ids): the wav is read (or a [start_time, end_time]
+slice of it), the audio augmentors run on it, and then the host fbank
+featurizes it or, in raw mode, it is resampled and dB-normalized alone.
+Precomputed pooled ``.npy`` features (``extract_features``' output) are
+read through a memory map. The features are not normalized here: the
+model holds the CMVN, and the trainer builds the dataset without one, so
+the dataset's ``mean_istd_filepath`` is not ported; nor is the C++ raw
+batch path (``load_raw_batch``, ``data/native_pipeline.py``; ROADMAP Queue
+A, item 12).
+
+``collate_fn`` pads features (time and label axes rounded up to buckets,
+labels padded with −1) and hands waveform items to ``collate_raw_fn``,
+which rounds the samples up to ``RAW_SAMPLE_BUCKET`` = 64·160, a multiple
+of 160, so kernel B1's flat launch applies as it stands, and quantizes the
+waveforms to int16 for the host→device copy.
+"""
+import random
+
+import numpy as np
+
+from ppasr_tpu_torch.data.audio import AudioSegment
+from ppasr_tpu_torch.data.augmentor.augmentation import AugmentationPipeline
+from ppasr_tpu_torch.data.featurizer.audio_featurizer import AudioFeaturizer
+from ppasr_tpu_torch.data.featurizer.text_featurizer import TextFeaturizer
+from ppasr_tpu_torch.data.manifest import read_manifest
+
+
+class ASRDataset:
+    """Indexable dataset of (features or waveform, token ids)."""
+
+    def __init__(self,
+                 manifest_path: str,
+                 vocab_filepath: str,
+                 preprocess_conf: dict = None,
+                 min_duration: float = 0.5,
+                 max_duration: float = 20,
+                 manifest_type: str = 'txt',
+                 augmentation_config: list = None,
+                 train: bool = False,
+                 return_raw: bool = False):
+        if manifest_type != 'txt':
+            raise NotImplementedError(
+                f"manifest_type={manifest_type!r}: the binary manifest is "
+                f"not ported yet (ROADMAP Queue A, item 12)")
+        preprocess_conf = dict(preprocess_conf or {})
+        if max_duration < 0:
+            max_duration = float('inf')
+        self.manifest = read_manifest(manifest_path,
+                                      max_duration=max_duration,
+                                      min_duration=min_duration)
+        self.audio_featurizer = AudioFeaturizer(**preprocess_conf, train=train)
+        self.text_featurizer = TextFeaturizer(vocab_filepath)
+        self.augmentation = AugmentationPipeline(augmentation_config) \
+            if (train and augmentation_config) else None
+        self._feature_pools = {}
+        self.return_raw = bool(return_raw)
+
+    def __len__(self):
+        return len(self.manifest)
+
+    def entry(self, idx: int) -> dict:
+        return self.manifest[idx]
+
+    def _audio(self, instance):
+        path = instance['audio_filepath']
+        if 'start_time' in instance:
+            audio = AudioSegment.slice_from_file(
+                path, start=instance['start_time'], end=instance['end_time'])
+        else:
+            audio = AudioSegment.from_file(path)
+        if self.augmentation is not None:
+            self.augmentation.transform_audio(audio)
+        return audio
+
+    def __getitem__(self, idx: int):
+        instance = self.entry(idx)
+        path = instance['audio_filepath']
+        tokens = np.asarray(self.text_featurizer.featurize(instance['text']),
+                            np.int32)
+        if self.return_raw:
+            if path.endswith('.npy'):
+                raise ValueError(
+                    "raw mode cannot read precomputed feature manifests; "
+                    "point train_manifest at the wav manifest")
+            samples = self.audio_featurizer.waveform(self._audio(instance))
+            return samples.astype(np.float32), tokens
+        if path.endswith('.npy'):
+            pool = self._feature_pools.get(path)
+            if pool is None:
+                pool = np.load(path, mmap_mode='r')
+                self._feature_pools[path] = pool
+            feature = np.array(pool[instance['start_frame']:
+                                    instance['end_frame'], :])
+        else:
+            feature = self.audio_featurizer.featurize(self._audio(instance))
+        if self.augmentation is not None:
+            feature = self.augmentation.transform_feature(feature)
+        return feature.astype(np.float32), tokens
+
+    @property
+    def feature_dim(self):
+        return self.audio_featurizer.feature_dim
+
+    @property
+    def vocab_size(self):
+        return self.text_featurizer.vocab_size
+
+    @property
+    def vocab_list(self):
+        return self.text_featurizer.vocab_list
+
+
+def _round_up(x: int, multiple: int) -> int:
+    return ((x + multiple - 1) // multiple) * multiple
+
+
+def collate_fn(batch, time_bucket: int = 1, label_bucket: int = 1,
+               shuffle: bool = True):
+    """List of (feature [T, D], tokens [U]) → (inputs [B, Tmax, D] float32,
+    labels [B, Umax] int32 padded with −1, input_lens [B] int64, label_lens
+    [B] int64), the axes rounded up to the buckets; the order shuffled
+    within the batch with ``random`` when ``shuffle``. Waveform items go to
+    ``collate_raw_fn``."""
+    if shuffle:
+        batch = list(batch)
+        random.shuffle(batch)
+    if batch[0][0].ndim == 1:
+        return collate_raw_fn(batch, label_bucket=max(label_bucket, 1))
+    bsz = len(batch)
+    dim = batch[0][0].shape[1]
+    max_t = max(f.shape[0] for f, _ in batch)
+    max_u = max(max(len(t) for _, t in batch), 1)
+    max_t = _round_up(max_t, time_bucket)
+    max_u = _round_up(max_u, label_bucket)
+    inputs = np.zeros((bsz, max_t, dim), np.float32)
+    labels = np.full((bsz, max_u), -1, np.int32)
+    input_lens = np.zeros((bsz,), np.int64)
+    label_lens = np.zeros((bsz,), np.int64)
+    for i, (feature, tokens) in enumerate(batch):
+        t, u = feature.shape[0], len(tokens)
+        inputs[i, :t] = feature
+        labels[i, :u] = tokens
+        input_lens[i] = t
+        label_lens[i] = u
+    return inputs, labels, input_lens, label_lens
+
+
+# raw-waveform buckets: samples rounded up to 64 frame shifts (0.64 s)
+RAW_SAMPLE_BUCKET = 64 * 160
+
+
+def _wav_to_int16(wavs: np.ndarray) -> np.ndarray:
+    """int16-scaled float waveforms → int16 (round, clip): half the bytes of
+    the host→device copy; the rounding is well under the train-time
+    dither."""
+    return np.clip(np.rint(wavs), -32768, 32767).astype(np.int16)
+
+
+def collate_raw_fn(batch, sample_bucket: int = RAW_SAMPLE_BUCKET,
+                   label_bucket: int = 16):
+    """List of (waveform [S], tokens [U]) → (wavs [B, Smax] int16, labels
+    [B, Umax] int32 padded with −1, wav_lens [B] int64 sample counts,
+    label_lens [B] int64)."""
+    bsz = len(batch)
+    max_s = max(w.shape[0] for w, _ in batch)
+    max_u = max(max(len(t) for _, t in batch), 1)
+    max_s = _round_up(max_s, sample_bucket)
+    max_u = _round_up(max_u, label_bucket)
+    wavs = np.zeros((bsz, max_s), np.float32)
+    labels = np.full((bsz, max_u), -1, np.int32)
+    wav_lens = np.zeros((bsz,), np.int64)
+    label_lens = np.zeros((bsz,), np.int64)
+    for i, (w, tokens) in enumerate(batch):
+        s, u = w.shape[0], len(tokens)
+        wavs[i, :s] = w
+        labels[i, :u] = tokens
+        wav_lens[i] = s
+        label_lens[i] = u
+    return _wav_to_int16(wavs), labels, wav_lens, label_lens

@@ -52,3 +52,7 @@ class AudioFeaturizer:
         if self._use_dB_normalization:
             audio_segment.normalize(target_db=self._target_dB)
         return audio_segment.to('int16').astype(np.float32)
+
+    @property
+    def feature_dim(self) -> int:
+        return self._n_mels

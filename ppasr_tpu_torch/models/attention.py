@@ -5,29 +5,35 @@ Relative position: scores = ((q+u)·kᵀ + (q+v)·pᵀ) / sqrt(dk) with
 pos_bias_u/v [H, dk] and no rel-shift (:117-128). The key/value cache is
 passed in by the encoder as tensors of a fixed size and prepended along
 time; masked entries are re-zeroed after the softmax, so fully masked rows
-give zeros rather than NaN. The Squeezeformer options (adaptive scale,
-positional bias) come with that model (ROADMAP Queue A, model zoo).
+give zeros rather than NaN. Dropout on the attention probabilities
+(:142). ``out_init_scale`` is the depth-scaled init of ``linear_out``. The
+Squeezeformer options (adaptive scale, positional bias) come with that
+model (ROADMAP Queue A, model zoo).
 """
 import math
 
 import torch
 from torch import nn
 
+from ppasr_tpu_torch.models.base import Dropout, Linear
+
 
 class MultiHeadedAttention(nn.Module):
-    def __init__(self, n_head: int, n_feat: int, rel_pos: bool = False):
+    def __init__(self, n_head: int, n_feat: int, rel_pos: bool = False,
+                 dropout_rate: float = 0.0, out_init_scale: float = 1.0):
         super().__init__()
         if n_feat % n_head:
             raise ValueError(f"n_feat {n_feat} not divisible by {n_head} heads")
         self.n_head, self.n_feat = n_head, n_feat
         self.d_k = n_feat // n_head
         self.rel_pos = rel_pos
-        self.linear_q = nn.Linear(n_feat, n_feat)
-        self.linear_k = nn.Linear(n_feat, n_feat)
-        self.linear_v = nn.Linear(n_feat, n_feat)
-        self.linear_out = nn.Linear(n_feat, n_feat)
+        self.linear_q = Linear(n_feat, n_feat)
+        self.linear_k = Linear(n_feat, n_feat)
+        self.linear_v = Linear(n_feat, n_feat)
+        self.linear_out = Linear(n_feat, n_feat, init_scale=out_init_scale)
+        self.dropout = Dropout(dropout_rate)
         if rel_pos:
-            self.linear_pos = nn.Linear(n_feat, n_feat, bias=False)
+            self.linear_pos = Linear(n_feat, n_feat, bias=False)
             self.pos_bias_u = nn.Parameter(torch.zeros(n_head, self.d_k))
             self.pos_bias_v = nn.Parameter(torch.zeros(n_head, self.d_k))
 
@@ -51,8 +57,10 @@ class MultiHeadedAttention(nn.Module):
         if self.rel_pos:
             p = self.linear_pos(pos_emb).view(pos_emb.shape[0], -1,
                                               self.n_head, self.d_k)
-            matrix_ac = torch.einsum('bthd,bshd->bhts', q + self.pos_bias_u, k)
-            matrix_bd = torch.einsum('bthd,bshd->bhts', q + self.pos_bias_v,
+            matrix_ac = torch.einsum('bthd,bshd->bhts',
+                                     q + self.pos_bias_u.to(q.dtype), k)
+            matrix_bd = torch.einsum('bthd,bshd->bhts',
+                                     q + self.pos_bias_v.to(q.dtype),
                                      p.expand(q.shape[0], -1, -1, -1))
             scores = (matrix_ac + matrix_bd) / math.sqrt(self.d_k)
         else:
@@ -66,6 +74,6 @@ class MultiHeadedAttention(nn.Module):
         else:
             attn = torch.softmax(scores, dim=-1)
 
-        x = torch.einsum('bhts,bshd->bthd', attn, v)
+        x = torch.einsum('bhts,bshd->bthd', self.dropout(attn), v)
         b, t1 = x.shape[0], x.shape[1]
         return self.linear_out(x.reshape(b, t1, self.n_feat)), (k, v)

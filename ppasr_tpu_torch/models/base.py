@@ -1,14 +1,34 @@
-"""Shared model plumbing: activations, global CMVN (counterpart of
-ppasr_tpu/models/base.py:42-66), and the compute dtype.
+"""Shared model plumbing (counterpart of ppasr_tpu/models/base.py):
+activations, global CMVN (:42-66), dropout (:73-100), the initializers
+(:8-39) and the compute dtype.
 
 The JAX models take a flax ``dtype``: parameters stay float32 and each
 Dense, Conv and Embed casts its kernel and input to the dtype, while
 LayerNorm computes its statistics, scale and bias in float32 and rounds
-its output to the dtype. ``LayerNorm`` below does the same, and
-``cast_for_compute`` casts a module's weights once, leaving the LayerNorms
-and the CMVN constants in float32. Initializers are not ported: the port
-loads trained weights (``utils/checkpoint.convert_params``)."""
+its output to the dtype. ``LayerNorm`` below does the same. Two ways to
+get the dtype:
+
+- ``cast_for_compute`` casts a module's weights once, in place, leaving the
+  LayerNorms and the CMVN constants in float32: for inference;
+- ``cast_at_use`` keeps every parameter float32 and has ``Linear``,
+  ``Conv1d``, ``Conv2d`` and ``Embedding`` cast their weights and input to
+  the dtype at each call, as flax does: for training, where the master
+  weights and their gradients must stay float32. It is not
+  ``torch.autocast``, whose op lists are not flax's rule.
+
+``Dropout`` is the JAX package's: the keep probability is quantized to
+q/256, the mask drawn from 8-bit random integers of the generator the
+caller sets (``dropout_generator``), and kept values divided by q/256.
+
+``init_parameters`` draws a fresh model from the JAX model's distributions:
+Kaiming uniform (fan in, gain 2) for Dense and Conv kernels, times
+``init_scale`` on the output projection of every encoder residual branch
+(``scaled_kaiming``, the depth-scaled init (2·num_blocks)^-1/2), zero
+biases, N(0, 1) embeddings, Xavier uniform ``pos_bias_u/v`` and unit
+LayerNorms. Same distributions, not the same bits."""
+import contextlib
 import json
+import math
 import os
 
 import numpy as np
@@ -77,6 +97,129 @@ def load_cmvn(mean_istd_path):
         data = json.load(f)
     return (tuple(np.float32(v) for v in data['mean']),
             tuple(np.float32(v) for v in data['istd']))
+
+
+class _CastAtUse:
+    """Mixin: with ``compute_dtype`` set, ``forward`` runs on the weights
+    and input cast to it (flax's ``promote_dtype`` of a Dense, Conv or
+    Embed); ``init_scale`` scales the Kaiming init (``scaled_kaiming``)."""
+    compute_dtype = None
+    init_scale = 1.0
+
+    def _cast(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return x, self.weight, self.bias
+        bias = None if self.bias is None else self.bias.to(dt)
+        return x.to(dt), self.weight.to(dt), bias
+
+
+class Linear(_CastAtUse, nn.Linear):
+    def __init__(self, in_features, out_features, bias=True, init_scale=1.0):
+        super().__init__(in_features, out_features, bias=bias)
+        self.init_scale = init_scale
+
+    def forward(self, x):
+        return F.linear(*self._cast(x))
+
+
+class Conv1d(_CastAtUse, nn.Conv1d):
+    def forward(self, x):
+        return self._conv_forward(*self._cast(x))
+
+
+class Conv2d(_CastAtUse, nn.Conv2d):
+    def forward(self, x):
+        return self._conv_forward(*self._cast(x))
+
+
+class Embedding(_CastAtUse, nn.Embedding):
+    def forward(self, ids):
+        weight = self.weight if self.compute_dtype is None \
+            else self.weight.to(self.compute_dtype)
+        return F.embedding(ids, weight)
+
+
+def compute_dtype_of(module: nn.Module) -> torch.dtype:
+    """The dtype ``module`` (a ``Linear``, conv or ``Embedding``) computes
+    in: its ``compute_dtype`` if set, else its weights'."""
+    return module.compute_dtype or module.weight.dtype
+
+
+class Dropout(nn.Module):
+    """flax-style dropout of the JAX package (ppasr_tpu/models/base.py:
+    73-100): active in ``train()`` mode; keep probability q/256 with
+    q = round((1 − rate)·256) clipped to [1, 255]; the mask is
+    ``bits < q`` for uint8 ``bits`` from ``self.generator`` (the default
+    generator when None)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        q = min(255, max(1, round((1.0 - self.rate) * 256)))
+        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
+                             device=x.device, generator=self.generator)
+        return torch.where(bits < q, x / (q / 256.0), 0.0).to(x.dtype)
+
+
+@contextlib.contextmanager
+def dropout_generator(module: nn.Module, generator):
+    """Every ``Dropout`` of ``module`` draws from ``generator`` inside the
+    block (the ``'dropout'`` stream of a train step)."""
+    drops = [m for m in module.modules() if isinstance(m, Dropout)]
+    for m in drops:
+        m.generator = generator
+    try:
+        yield
+    finally:
+        for m in drops:
+            m.generator = None
+
+
+def _uniform_(t, bound, generator):
+    with torch.no_grad():
+        t.copy_(torch.rand(t.shape, generator=generator, dtype=torch.float64)
+                .mul_(2 * bound).sub_(bound).to(t.dtype))
+
+
+def init_parameters(module: nn.Module, generator: torch.Generator = None):
+    """Fresh parameters from the JAX model's initializers (see the module
+    docstring), drawn on the CPU from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, (Linear, Conv1d, Conv2d)):
+            fan_in = m.weight[0].numel()
+            _uniform_(m.weight, math.sqrt(6.0 * m.init_scale ** 2 / fan_in),
+                      generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, Embedding):
+            with torch.no_grad():
+                m.weight.copy_(torch.randn(m.weight.shape,
+                                           generator=generator))
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        for name in ('pos_bias_u', 'pos_bias_v'):
+            p = getattr(m, name, None)
+            if isinstance(p, nn.Parameter):
+                _uniform_(p, math.sqrt(6.0 / sum(p.shape)), generator)
+    return module
+
+
+def cast_at_use(module: nn.Module, dtype: torch.dtype):
+    """Compute in ``dtype`` over float32 parameters (see the module
+    docstring); ``None`` computes in the weights' dtype again."""
+    for m in module.modules():
+        if isinstance(m, _CastAtUse):
+            m.compute_dtype = None if dtype == torch.float32 else dtype
+    return module
 
 
 def cast_for_compute(module: nn.Module, dtype: torch.dtype):

@@ -1,5 +1,15 @@
 """Conformer model: encoder, CTC head and attention decoder (counterpart of
-ppasr_tpu/models/conformer.py:29-204 for inference).
+ppasr_tpu/models/conformer.py:29-204).
+
+``forward`` is the training loss (:65-106): ctc_weight·CTC + (1 −
+ctc_weight)·attention, the attention loss the label-smoothed KL of the
+left-to-right decoder mixed with the right-to-left decoder's over
+``reverse_pad_list`` labels by ``reverse_weight``, and the decoder's token
+accuracy; it returns ``loss``, ``loss_att``, ``loss_ctc`` and
+``th_accuracy`` (the last two None when ``ctc_weight`` is 1). Dropout and
+the dynamic chunk follow ``train()`` / ``eval()`` (the JAX
+``deterministic``); ``rngs`` gives the step's ``'dropout'`` and ``'chunk'``
+generators.
 
 ``streaming=True`` makes the encoder dynamic-chunk and causal (:52-55).
 Entry points: ``get_encoder_out`` (full context, :114-120),
@@ -14,20 +24,24 @@ The attention decoder exists where the JAX model has its parameters: when
 ``ctc_weight < 1`` (the training loss calls it only then); its R2L half when
 ``r_num_blocks > 0``. ``set_compute_dtype`` is the flax ``dtype``
 (``models/base.cast_for_compute``): CTC posteriors and the decoder's scores
-stay float32. The training loss comes with training support (ROADMAP Queue
-A, training).
+stay float32; ``set_compute_dtype(dtype, at_use=True)`` computes in the
+dtype over float32 parameters (``models/base.cast_at_use``), for training.
 """
 from typing import Optional
 
 import torch
 from torch import nn
 
-from ppasr_tpu_torch.models.base import cast_for_compute
+from ppasr_tpu_torch.models.base import (cast_at_use, cast_for_compute,
+                                         dropout_generator, init_parameters)
 from ppasr_tpu_torch.models.conformer_encoder import (ConformerEncoder,
                                                       StreamingState)
 from ppasr_tpu_torch.models.ctc import CTCHead
 from ppasr_tpu_torch.models.rescore import attention_rescore_scores
 from ppasr_tpu_torch.models.transformer_decoder import BiTransformerDecoder
+from ppasr_tpu_torch.ops.common import (IGNORE_ID, add_sos_eos,
+                                        reverse_pad_list, th_accuracy)
+from ppasr_tpu_torch.ops.label_smoothing import label_smoothing_loss
 
 
 class ConformerModel(nn.Module):
@@ -45,6 +59,9 @@ class ConformerModel(nn.Module):
             conf['causal'] = True
         self.streaming = streaming
         self.vocab_size = vocab_size
+        self.ctc_weight = ctc_weight
+        self.lsm_weight = lsm_weight
+        self.length_normalized_loss = length_normalized_loss
         self.reverse_weight = reverse_weight
         self.sos = self.eos = vocab_size - 1
         self.encoder = ConformerEncoder(input_size, cmvn_mean=cmvn_mean,
@@ -62,10 +79,62 @@ class ConformerModel(nn.Module):
     def right_context(self):
         return self.encoder.right_context
 
-    def set_compute_dtype(self, dtype: torch.dtype):
-        """Run in ``dtype`` from now on (the JAX model's ``dtype``)."""
-        cast_for_compute(self, dtype)
+    def set_compute_dtype(self, dtype: torch.dtype, at_use: bool = False):
+        """Run in ``dtype`` from now on (the JAX model's ``dtype``): the
+        weights cast once, or with ``at_use`` kept float32 and cast at each
+        call."""
+        if at_use:
+            cast_at_use(self, dtype)
+        else:
+            cast_for_compute(self, dtype)
         return self
+
+    def init_weights(self, generator: torch.Generator = None):
+        """Fresh parameters from the JAX model's initializers
+        (``models/base.init_parameters``)."""
+        return init_parameters(self, generator)
+
+    def forward(self, speech, speech_lens, text, text_lens, rngs=None):
+        """Training loss (ppasr_tpu/models/conformer.py:65-106). speech
+        [B, T, D] features, speech_lens [B], text [B, U] padded with −1,
+        text_lens [B]; ``rngs`` {'dropout', 'chunk'} generators. Returns
+        {loss, loss_att, loss_ctc, th_accuracy}."""
+        rngs = rngs or {}
+        with dropout_generator(self, rngs.get('dropout')):
+            return self._loss(speech, speech_lens, text, text_lens,
+                              rngs.get('chunk'))
+
+    def _loss(self, speech, speech_lens, text, text_lens, chunk_rng):
+        encoder_out, encoder_mask = self.encoder(
+            speech, speech_lens, chunk_generator=chunk_rng)
+        encoder_lens = self._lens(encoder_mask)
+        loss_ctc = self.ctc(encoder_out, encoder_lens, text, text_lens)
+        loss_att = acc_att = None
+        if self.decoder is not None:
+            ys_in, ys_out = add_sos_eos(text, text_lens, self.sos, self.eos)
+            r_text = reverse_pad_list(text, text_lens, pad_value=IGNORE_ID)
+            r_ys_in, r_ys_out = add_sos_eos(r_text, text_lens, self.sos,
+                                            self.eos)
+            dec_out, r_dec_out = self.decoder(
+                encoder_out, encoder_mask, ys_in, text_lens + 1,
+                r_ys_in_pad=r_ys_in)
+            loss_att = label_smoothing_loss(
+                dec_out.float(), ys_out, self.lsm_weight,
+                self.length_normalized_loss)
+            if r_dec_out is not None and self.reverse_weight > 0.0:
+                loss_r2l = label_smoothing_loss(
+                    r_dec_out.float(), r_ys_out, self.lsm_weight,
+                    self.length_normalized_loss)
+                loss_att = (loss_att * (1 - self.reverse_weight)
+                            + loss_r2l * self.reverse_weight)
+            acc_att = th_accuracy(dec_out.float(), ys_out)
+        if loss_att is None:
+            loss = loss_ctc
+        else:
+            loss = self.ctc_weight * loss_ctc \
+                + (1 - self.ctc_weight) * loss_att
+        return {'loss': loss, 'loss_att': loss_att, 'loss_ctc': loss_ctc,
+                'th_accuracy': acc_att}
 
     def _encode_full(self, speech, speech_lens):
         return self.encoder(speech, speech_lens,

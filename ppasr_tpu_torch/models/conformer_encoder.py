@@ -20,8 +20,15 @@ positional table is cast with the weights (:237-238), the ×sqrt(d) scale
 is rounded to the dtype (:251), and the streaming caches are zeroed in the
 dtype (:302-315).
 
-Dropout and the training-only options (``remat``, depth-scaled init) are
-accepted for config compatibility and have no effect at inference.
+Training (``module.train()``): dropout on every residual branch, inside the
+feed-forwards, on the attention probabilities and after the positional
+stage (:83-172, :273); and the dynamic-chunk mask drawn once per batch
+(:275-284), from ``chunk_generator``. In eval
+mode a dynamic-chunk encoder with ``decoding_chunk_size`` 0 uses the full
+context (:283-289). ``depth_scaled_init`` sets the init scale
+(2·num_blocks)^-1/2 of each residual branch's output projection
+(``models/base.init_parameters``); ``remat`` is accepted for config
+compatibility and has no effect.
 """
 from typing import NamedTuple, Optional
 
@@ -30,9 +37,9 @@ import torch
 from torch import nn
 
 from ppasr_tpu_torch.models.attention import MultiHeadedAttention
-from ppasr_tpu_torch.models.base import (GlobalCMVN, LayerNorm,
-                                         dtype_scalar, get_activation,
-                                         swish)
+from ppasr_tpu_torch.models.base import (Dropout, GlobalCMVN, LayerNorm,
+                                         compute_dtype_of, dtype_scalar,
+                                         get_activation, swish)
 from ppasr_tpu_torch.models.convolution import ConvolutionModule
 from ppasr_tpu_torch.models.embedding import sinusoid_table
 from ppasr_tpu_torch.models.positionwise import PositionwiseFeedForward
@@ -55,8 +62,11 @@ class ConformerEncoderLayer(nn.Module):
                  use_cnn_module: bool = True, cnn_module_kernel: int = 15,
                  cnn_module_norm: str = 'layer_norm', causal: bool = False,
                  activation=swish, rel_pos: bool = True,
-                 final_norm: bool = True):
+                 final_norm: bool = True, dropout_rate: float = 0.1,
+                 attention_dropout_rate: float = 0.0,
+                 out_init_scale: float = 1.0):
         super().__init__()
+        self.dropout = Dropout(dropout_rate)
         self.normalize_before = normalize_before
         self.macaron_style = macaron_style
         self.use_cnn_module = use_cnn_module
@@ -65,24 +75,27 @@ class ConformerEncoderLayer(nn.Module):
         if macaron_style:
             self.norm_ff_macaron = ln()
             self.feed_forward_macaron = PositionwiseFeedForward(
-                size, linear_units, activation)
+                size, linear_units, activation, dropout_rate, out_init_scale)
         self.norm_mha = ln()
-        self.self_attn = MultiHeadedAttention(attention_heads, size, rel_pos)
+        self.self_attn = MultiHeadedAttention(
+            attention_heads, size, rel_pos, attention_dropout_rate,
+            out_init_scale)
         if use_cnn_module:
             self.norm_conv = ln()
             self.conv_module = ConvolutionModule(
-                size, cnn_module_kernel, activation, cnn_module_norm, causal)
+                size, cnn_module_kernel, activation, cnn_module_norm, causal,
+                out_init_scale)
         self.norm_ff = ln()
-        self.feed_forward = PositionwiseFeedForward(size, linear_units,
-                                                    activation)
+        self.feed_forward = PositionwiseFeedForward(
+            size, linear_units, activation, dropout_rate, out_init_scale)
         if self.final_norm:
             self.norm_final = ln()
 
     def _sublayer(self, x, norm, fn, scale=1.0):
-        """Residual around ``fn`` with pre- or post-LayerNorm; ``fn``
-        returns (y, extra)."""
+        """Residual around ``fn`` with pre- or post-LayerNorm and dropout;
+        ``fn`` returns (y, extra)."""
         y, extra = fn(norm(x) if self.normalize_before else x)
-        x = x + scale * y
+        x = x + scale * self.dropout(y)
         if not self.normalize_before:
             x = norm(x)
         return x, extra
@@ -148,12 +161,16 @@ class ConformerEncoder(nn.Module):
         self.right_context = sub.right_context
         self.out_len = sub.out_len
         self.embed = sub(input_size, output_size)
+        self.pos_dropout = Dropout(positional_dropout_rate)
         activation = get_activation(activation_type)
+        out_init_scale = (2.0 * num_blocks) ** -0.5 if depth_scaled_init \
+            else 1.0
         self.layers = nn.ModuleList([ConformerEncoderLayer(
             output_size, attention_heads, linear_units, normalize_before,
             macaron_style, use_cnn_module, cnn_module_kernel, cnn_module_norm,
             causal, activation, pos_enc_layer_type == 'rel_pos',
-            block_final_norm) for _ in range(num_blocks)])
+            block_final_norm, dropout_rate, attention_dropout_rate,
+            out_init_scale) for _ in range(num_blocks)])
         if normalize_before:
             self.after_norm = LayerNorm(output_size, eps=1e-5)
         self.register_buffer(
@@ -162,8 +179,8 @@ class ConformerEncoder(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """The compute dtype: that of the weights."""
-        return self.embed.Dense_0.weight.dtype
+        """The compute dtype (``models/base.compute_dtype_of``)."""
+        return compute_dtype_of(self.embed.Dense_0)
 
     def _embed(self, xs):
         if self.global_cmvn is not None:
@@ -179,20 +196,24 @@ class ConformerEncoder(nn.Module):
         return xs, pos_emb       # rel_pos: no ×sqrt(d) (JAX :230-245)
 
     def forward(self, xs, xs_lens, decoding_chunk_size: int = 0,
-                num_decoding_left_chunks: int = -1):
+                num_decoding_left_chunks: int = -1, chunk_generator=None):
         """Full-utterance forward. xs [B, T, D] padded features, xs_lens [B].
-        Returns (out [B, T', D'], masks [B, 1, T'] bool)."""
+        Returns (out [B, T', D'], masks [B, 1, T'] bool). In train mode a
+        dynamic-chunk encoder with ``decoding_chunk_size`` 0 draws its chunk
+        (``ops/masks.add_optional_chunk_mask``)."""
         xs = self._embed(xs)
         t_sub = xs.shape[1]
         out_lens = self.out_len(xs_lens.to(torch.long))
         masks = make_non_pad_mask(out_lens, t_sub)[:, None, :]
-        xs, pos_emb = self._apply_pos(xs, self.pe[None, :t_sub])
+        xs, pos_emb = self._apply_pos(xs, self.pe[None, :t_sub].to(xs.dtype))
+        xs = self.pos_dropout(xs)
         dcs = decoding_chunk_size
-        if self.use_dynamic_chunk and dcs == 0:
-            dcs = -1      # deterministic inference on a dynamic-chunk model
+        if self.use_dynamic_chunk and dcs == 0 and not self.training:
+            dcs = -1      # deterministic eval on a dynamic-chunk model
         chunk_masks = add_optional_chunk_mask(
             t_sub, masks, self.use_dynamic_chunk, self.use_dynamic_left_chunk,
-            dcs, self.static_chunk_size, num_decoding_left_chunks)
+            dcs, self.static_chunk_size, num_decoding_left_chunks,
+            generator=chunk_generator)
         for layer in self.layers:
             xs, _, _ = layer(xs, chunk_masks, pos_emb, masks)
         if self.normalize_before:
@@ -222,7 +243,7 @@ class ConformerEncoder(nn.Module):
         clamps it."""
         start = offsets.to(torch.long).clamp(0, c + self.max_len - s)
         idx = start[:, None] + torch.arange(s, device=offsets.device) - c
-        rows = self.pe[idx.clamp(min=0)]
+        rows = self.pe[idx.clamp(min=0)].to(self.dtype)
         return rows * (idx >= 0)[..., None].to(rows.dtype)
 
     def forward_chunk(self, xs, state: StreamingState):

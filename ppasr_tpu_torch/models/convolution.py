@@ -8,19 +8,20 @@ is the last kernel−1 padded input frames. Non-causal mode pads the
 depthwise conv as flax's ``SAME``. Pad positions are zeroed with the batch
 mask before and after. Data stays [B, T, C]; the depthwise conv runs on
 [B, C, T]. Batch norm in the module comes with the model zoo (ROADMAP
-Queue A).
+Queue A). ``out_init_scale`` is the depth-scaled init of
+``pointwise_conv2``.
 """
 import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ppasr_tpu_torch.models.base import LayerNorm, swish
+from ppasr_tpu_torch.models.base import Conv1d, LayerNorm, Linear, swish
 
 
 class ConvolutionModule(nn.Module):
     def __init__(self, channels: int, kernel_size: int = 15,
                  activation=swish, norm: str = 'layer_norm',
-                 causal: bool = False):
+                 causal: bool = False, out_init_scale: float = 1.0):
         super().__init__()
         if norm != 'layer_norm':
             raise NotImplementedError(
@@ -30,11 +31,12 @@ class ConvolutionModule(nn.Module):
         self.causal = causal
         self.lorder = kernel_size - 1 if causal else 0
         self.activation = activation
-        self.pointwise_conv1 = nn.Linear(channels, 2 * channels)
-        self.depthwise_conv = nn.Conv1d(channels, channels, kernel_size,
-                                        groups=channels)
+        self.pointwise_conv1 = Linear(channels, 2 * channels)
+        self.depthwise_conv = Conv1d(channels, channels, kernel_size,
+                                     groups=channels)
         self.norm = LayerNorm(channels, eps=1e-5)
-        self.pointwise_conv2 = nn.Linear(channels, channels)
+        self.pointwise_conv2 = Linear(channels, channels,
+                                      init_scale=out_init_scale)
 
     def forward(self, x, mask_pad=None, cache=None):
         """x [B, T, C]; mask_pad [B, 1, T] bool (True = valid); cache

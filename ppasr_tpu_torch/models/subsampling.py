@@ -12,6 +12,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ppasr_tpu_torch.models.base import Conv2d, Linear
+
 
 def subsampled_len4(t):
     return (((t - 1) // 2) - 1) // 2
@@ -23,10 +25,10 @@ class Conv2dSubsampling4(nn.Module):
 
     def __init__(self, idim: int, odim: int):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(1, odim, 3, stride=2)
-        self.Conv_1 = nn.Conv2d(odim, odim, 3, stride=2)
+        self.Conv_0 = Conv2d(1, odim, 3, stride=2)
+        self.Conv_1 = Conv2d(odim, odim, 3, stride=2)
         f_out = ((idim - 1) // 2 - 1) // 2
-        self.Dense_0 = nn.Linear(f_out * odim, odim)
+        self.Dense_0 = Linear(f_out * odim, odim)
 
     def forward(self, x):
         """[B, T, F] → [B, T', odim]."""

@@ -1,6 +1,7 @@
 """Sequence helpers of the hybrid CTC/attention models (counterpart of
-ppasr_tpu/ops/common.py:12-52): the ignore id, sos/eos framing of padded
-label batches and their per-row reversal, on the labels' device."""
+ppasr_tpu/ops/common.py:12-69): the ignore id, sos/eos framing of padded
+label batches, their per-row reversal and the decoder's token accuracy, on
+the labels' device."""
 import torch
 
 IGNORE_ID = -1
@@ -37,3 +38,14 @@ def reverse_pad_list(ys_pad: torch.Tensor, ys_lens: torch.Tensor,
     return torch.where(pos < lens, gathered,
                        torch.tensor(pad_value, dtype=ys_pad.dtype,
                                     device=ys_pad.device))
+
+
+def th_accuracy(pad_outputs: torch.Tensor, pad_targets: torch.Tensor,
+                ignore_label: int = IGNORE_ID) -> torch.Tensor:
+    """Token accuracy over the positions that are not ``ignore_label``
+    (ppasr_tpu/ops/common.py:54-69). pad_outputs [B, U, V] (or [B·U, V])
+    logits, pad_targets [B, U] → float32 scalar."""
+    pred = pad_outputs.argmax(dim=-1).reshape(pad_targets.shape)
+    mask = pad_targets != ignore_label
+    correct = ((pred == pad_targets) & mask).sum()
+    return (correct / torch.clamp(mask.sum(), min=1)).to(torch.float32)

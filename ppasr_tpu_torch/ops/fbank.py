@@ -210,11 +210,13 @@ def batch_frame_lens(lengths: torch.Tensor, max_t: int,
 
 def fbank_batch_torch(waveform: torch.Tensor, lengths: torch.Tensor,
                       sample_rate: int = 16000, num_mel_bins: int = 80,
-                      **kw):
+                      noise: torch.Tensor = None, **kw):
     """[B, S] int16-scaled waveforms + [B] sample counts → ([B, T, M]
     float32 log-mel, [B] int32 frame counts) with the static frame capacity
     T = 1 + (S − 400) // 160 (0 below 400 samples). Frames that run into a
-    row's padding are computed; callers mask them by the frame counts."""
+    row's padding are computed; callers mask them by the frame counts.
+    ``noise`` [B, T, 400]: the training dither, added to the framed samples
+    before the DC removal (ppasr_tpu/ops/fbank.py:262-264)."""
     bsz, s = waveform.shape
     max_t = max(1 + (s - 400) // 160, 0)
     frame_lens = batch_frame_lens(lengths, max_t)
@@ -222,5 +224,7 @@ def fbank_batch_torch(waveform: torch.Tensor, lengths: torch.Tensor,
         return (waveform.new_zeros((bsz, 0, num_mel_bins), dtype=torch.float32),
                 frame_lens)
     frames = frame_torch(waveform.to(torch.float32), 400, 160, max_t)
+    if noise is not None:
+        frames = frames + noise
     return fbank_frames_torch(frames, sample_rate, num_mel_bins,
                               **kw), frame_lens

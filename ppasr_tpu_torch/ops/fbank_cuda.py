@@ -91,6 +91,7 @@ def _library():
         lib.fbank_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         lib.fbank_launch.restype = ctypes.c_int
         _lib = lib
@@ -139,12 +140,18 @@ def fbank_strided(wav: torch.Tensor, n_frames: int, frame_stride: int,
                   num_mel_bins: int = 80, sample_rate: int = 16000,
                   preemphasis: float = 0.97, remove_dc_offset: bool = True,
                   low_freq: float = 20.0, high_freq: float = 0.0,
-                  out_rows: int = None):
+                  out_rows: int = None, noise: torch.Tensor = None,
+                  noise_group: int = None):
     """Launch the kernel: frame f is ``wav.view(-1)[f*frame_stride:][:400]``
     for f < n_frames. ``wav`` is a contiguous float32 CUDA tensor holding
     every sample the frames read. Returns [out_rows, num_mel_bins] float32
     (``out_rows`` defaults to ``n_frames``) whose first n_frames rows the
-    kernel wrote; the rest are left unwritten."""
+    kernel wrote; the rest are left unwritten.
+
+    ``noise`` (training dither): a contiguous float32 [G, R, 400] tensor on
+    the same device; frame t of each group of ``noise_group`` frames (all
+    n_frames by default) adds row [g, t] to its samples before the DC
+    removal, and frames with t >= R add nothing."""
     global launches
     if wav.device.type != 'cuda':
         raise ValueError(f"fbank kernel needs a CUDA tensor, got {wav.device}")
@@ -166,6 +173,23 @@ def fbank_strided(wav: torch.Tensor, n_frames: int, frame_stride: int,
     out_rows = n_frames if out_rows is None else out_rows
     if out_rows < n_frames:
         raise ValueError(f"out_rows={out_rows} < n_frames={n_frames}")
+    noise_ptr, noise_rows = None, 0
+    if noise is not None:
+        noise_group = n_frames if noise_group is None else noise_group
+        if (noise.device != wav.device or noise.dtype != torch.float32
+                or not noise.is_contiguous() or noise.ndim != 3
+                or noise.shape[2] != WINDOW_SIZE):
+            raise ValueError(f"noise must be a contiguous float32 [G, R, "
+                             f"{WINDOW_SIZE}] tensor on {wav.device}, got "
+                             f"{noise.dtype} {tuple(noise.shape)} on "
+                             f"{noise.device}")
+        noise_rows = noise.shape[1]
+        groups = -(-n_frames // max(noise_group, 1))
+        if noise_group < 1 or noise_rows > noise_group or \
+                noise.shape[0] < groups:
+            raise ValueError(f"noise {tuple(noise.shape)} does not cover "
+                             f"{n_frames} frames in groups of {noise_group}")
+        noise_ptr = noise.data_ptr() if noise_rows else None
     out = torch.empty((out_rows, num_mel_bins), dtype=torch.float32,
                       device=wav.device)
     if n_frames == 0:
@@ -178,7 +202,9 @@ def fbank_strided(wav: torch.Tensor, n_frames: int, frame_stride: int,
         rc = lib.fbank_launch(wav.data_ptr(), frame_stride, n_frames,
                               window.data_ptr(), band.data_ptr(),
                               weights.data_ptr(), num_mel_bins, preemphasis,
-                              int(remove_dc_offset), out.data_ptr(), stream)
+                              int(remove_dc_offset), noise_ptr, WINDOW_SIZE,
+                              noise_group or 1, noise_rows, out.data_ptr(),
+                              stream)
     if rc != 0:
         raise RuntimeError(f"fbank kernel launch failed: CUDA error {rc}")
     launches += 1
@@ -213,11 +239,14 @@ def fbank_window(wav: torch.Tensor, n_frames: int, num_mel_bins: int = 80,
 
 
 def fbank_batch(wavs: torch.Tensor, lengths: torch.Tensor,
-                num_mel_bins: int = 80, sample_rate: int = 16000, **kw):
+                num_mel_bins: int = 80, sample_rate: int = 16000,
+                noise: torch.Tensor = None, **kw):
     """[B, S] int16-scaled waveforms + [B] sample counts → ([B, T, M]
     log-mel, [B] int32 frame counts), T = S/160 − 2: ``fbank_jax`` as
     ``predict_batch``'s device frontend calls it (ppasr_tpu/predict.py:
-    184-190), in one launch on the card.
+    184-190), in one launch on the card. ``noise`` [B, T, 400] float32 is
+    the training dither, added to each framed sample before the DC removal
+    (``fbank_jax``'s ``dither · N(0, 1)`` with the draws given).
 
     S must be a multiple of 160. With k = S/160, frame t of row b starts at
     flat sample 160·(b·k + t), so one stride-160 launch of B·k − 2 frames
@@ -228,7 +257,7 @@ def fbank_batch(wavs: torch.Tensor, lengths: torch.Tensor,
         raise ValueError(f"wavs must be [B, S], got {tuple(wavs.shape)}")
     if wavs.device.type == 'cpu':
         return fbank_batch_torch(wavs, lengths, sample_rate, num_mel_bins,
-                                 **kw)
+                                 noise=noise, **kw)
     bsz, s = wavs.shape
     if not wavs.is_contiguous():
         raise ValueError("fbank_batch needs a contiguous [B, S] tensor")
@@ -239,7 +268,11 @@ def fbank_batch(wavs: torch.Tensor, lengths: torch.Tensor,
     k = s // WINDOW_SHIFT
     max_t = max(k - 2, 0)
     frame_lens = batch_frame_lens(lengths.to(wavs.device), max_t)
+    if noise is not None and tuple(noise.shape) != (bsz, max_t, WINDOW_SIZE):
+        raise ValueError(f"noise must be [{bsz}, {max_t}, {WINDOW_SIZE}], "
+                         f"got {tuple(noise.shape)}")
     out = fbank_strided(wavs.view(-1),
                         bsz * k - 2 if max_t else 0, WINDOW_SHIFT,
-                        num_mel_bins, sample_rate, out_rows=bsz * k, **kw)
+                        num_mel_bins, sample_rate, out_rows=bsz * k,
+                        noise=noise, noise_group=k, **kw)
     return out.view(bsz, k, num_mel_bins)[:, :max_t], frame_lens

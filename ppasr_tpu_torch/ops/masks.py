@@ -1,12 +1,37 @@
 """Attention and padding masks (counterpart of ppasr_tpu/ops/masks.py:31-120),
 built by broadcast integer arithmetic on the lengths' device.
 
-``add_optional_chunk_mask`` covers the deterministic paths: full context,
-a fixed decoding chunk, a static chunk, or the pad mask alone. The random
-dynamic-chunk draw of training (``decoding_chunk_size == 0``) comes with
-training support (ROADMAP Queue A, training).
+``add_optional_chunk_mask`` covers full context, a fixed decoding chunk, a
+static chunk, the pad mask alone, and the random dynamic chunk of training
+(``decoding_chunk_size == 0``, :97-112). The training draw is one per batch
+and is taken apart from the mask: ``draw_dynamic_chunk`` draws the two raw
+integers from a ``torch.Generator`` and ``dynamic_chunk_from_draw`` maps them
+to (chunk size, left chunks), so a test can hand the port the draw that
+JAX's key gives.
 """
 import torch
+
+
+def draw_dynamic_chunk(max_len: int, generator: torch.Generator = None):
+    """The batch's raw draws: (draw ∈ [1, max(max_len, 2)), left_draw ∈
+    [0, 2**30)), as ``jax.random.randint`` draws them from k1 and k2."""
+    draw = torch.randint(1, max(max_len, 2), (), generator=generator)
+    left = torch.randint(0, 2 ** 30, (), generator=generator)
+    return int(draw), int(left)
+
+
+def dynamic_chunk_from_draw(draw: int, left_draw: int, max_len: int,
+                            use_dynamic_left_chunk: bool):
+    """(chunk_size, num_left_chunks) of a training batch: the full context
+    when draw > max_len // 2, else a chunk of draw % 25 + 1 frames, with
+    left_draw % max(⌊(max_len − 1) / chunk⌋, 1) left chunks when
+    ``use_dynamic_left_chunk`` (else all of them, −1)."""
+    if draw > max_len // 2:
+        return max_len, -1
+    chunk_size = draw % 25 + 1
+    if not use_dynamic_left_chunk:
+        return chunk_size, -1
+    return chunk_size, left_draw % max((max_len - 1) // chunk_size, 1)
 
 
 def make_pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -48,13 +73,16 @@ def add_optional_chunk_mask(max_len: int, masks: torch.Tensor,
                             use_dynamic_chunk: bool,
                             use_dynamic_left_chunk: bool,
                             decoding_chunk_size: int, static_chunk_size: int,
-                            num_decoding_left_chunks: int) -> torch.Tensor:
+                            num_decoding_left_chunks: int,
+                            generator: torch.Generator = None,
+                            chunk_draw: tuple = None) -> torch.Tensor:
     """Combine the [B, 1, T] pad mask with an optional chunk mask →
     [B, T, T] (or the pad mask itself when no chunk mask applies).
 
     decoding_chunk_size < 0: full context; > 0: that chunk with
     num_decoding_left_chunks; == 0 with use_dynamic_chunk: the training
-    draw, not ported yet."""
+    draw, ``chunk_draw`` (draw, left_draw) if given, else drawn from
+    ``generator``."""
     if use_dynamic_chunk:
         if decoding_chunk_size < 0:
             chunk_size, num_left_chunks = max_len, -1
@@ -62,9 +90,10 @@ def add_optional_chunk_mask(max_len: int, masks: torch.Tensor,
             chunk_size = decoding_chunk_size
             num_left_chunks = num_decoding_left_chunks
         else:
-            raise NotImplementedError(
-                "dynamic-chunk training masks come with training support "
-                "(ROADMAP Queue A, training)")
+            if chunk_draw is None:
+                chunk_draw = draw_dynamic_chunk(max_len, generator)
+            chunk_size, num_left_chunks = dynamic_chunk_from_draw(
+                *chunk_draw, max_len, use_dynamic_left_chunk)
     elif static_chunk_size > 0:
         chunk_size, num_left_chunks = static_chunk_size, \
             num_decoding_left_chunks

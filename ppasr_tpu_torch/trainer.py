@@ -1,0 +1,463 @@
+"""Training orchestration (counterpart of ppasr_tpu/trainer.py:50-872).
+
+``PPASRTrainer(configs, use_gpu=True, overwrites=None,
+data_augment_configs=None)``:
+
+- ``train`` (:356-638): sortagrad batches of ``batch_size · accum_grad``
+  utterances, each reshaped to [accum_grad, micro] and skipped when micro
+  is 0; one optimizer update per batch (``train_state.make_train_step``);
+  with ``train_conf.device_frontend`` the loader yields int16 waveforms
+  and fbank with dither, SpecAugment and SpecSub run on the device
+  (``ops/frontend``), else host features; ``enable_amp`` computes in bf16
+  over float32 parameters; per-interval loss, lr and audio-s/s logs;
+  a per-epoch ``evaluate`` on the test set and on the train-subset probe
+  (``train_probe_size``); checkpoints ``epoch_N``, ``last_model`` and
+  ``best_model`` with rolling deletion; resume from ``last_model``.
+- ``evaluate`` (:710-872): greedy decoding at full context (or through
+  ``models/streaming_eval`` with ``streaming_eval``), CER or WER, and the
+  mean loss at full context.
+- Checkpoints hold ``model.msgpack``, the flax tree that both packages
+  read (``utils/checkpoint.export_params``), ``model.state`` and, unlike
+  the JAX package's ``optimizer.msgpack``, the optimizer's state as
+  PyTorch's own ``optimizer.pt``. ``pretrained_model`` is a shape-filtered
+  partial load of any ``model.msgpack``, the JAX package's included.
+
+The model runs on ``cuda:0`` unless ``use_gpu=False``; without a card
+``use_gpu=True`` raises. Each update's random streams derive from seed 1000
+and the update count. Left out, with their ROADMAP Queue A item 12:
+multi-process data parallelism, eval decoders other than greedy,
+``profile_steps``, the tensorboard writer, ``pad_to_max`` (one padded
+shape for a single compile, which eager PyTorch does not need), the binary
+manifest, host feature augmentation, ``create_data``,
+``extract_features`` and ``export``.
+"""
+import json
+import os
+import shutil
+import time
+from datetime import timedelta
+
+import numpy as np
+import torch
+
+from ppasr_tpu_torch.config import load_augmentation_config, load_config
+from ppasr_tpu_torch.data.dataset import ASRDataset
+from ppasr_tpu_torch.data.loader import DataLoader
+from ppasr_tpu_torch.data.sampler import SortagradBatchSampler
+from ppasr_tpu_torch.decoders.greedy import _collapse, greedy_decoder_batch
+from ppasr_tpu_torch.models.factory import build_model
+from ppasr_tpu_torch.predict import ieee_float32
+from ppasr_tpu_torch.train_state import (TrainState, create_train_state,
+                                         fold_in, make_train_step)
+from ppasr_tpu_torch.utils.checkpoint import (convert_params, export_params,
+                                              load_msgpack, save_msgpack)
+from ppasr_tpu_torch.utils.common import dict_to_object, labels_to_string
+from ppasr_tpu_torch.utils.logger import setup_logger
+from ppasr_tpu_torch.utils.metrics import cer, wer
+
+logger = setup_logger(__name__)
+
+TRAIN_SEED = 1000
+NOT_PORTED = "is not ported yet (ROADMAP Queue A, item 12)"
+
+
+class PPASRTrainer:
+    def __init__(self, configs, use_gpu: bool = True,
+                 overwrites: str = None, data_augment_configs: str = None):
+        """``configs``: YAML path or dict; ``overwrites``: comma-separated
+        ``dotted.key=value`` pairs typed as the values they replace;
+        ``data_augment_configs``: augmentation.json path."""
+        if use_gpu and not torch.cuda.is_available():
+            raise RuntimeError("use_gpu=True but torch.cuda.is_available() "
+                               "is False; pass use_gpu=False for the CPU")
+        self.device = torch.device('cuda:0' if use_gpu else 'cpu')
+        self.configs = load_config(configs) if not isinstance(configs, dict) \
+            else dict_to_object(configs)
+        if overwrites:
+            for pair in overwrites.split(','):
+                key, value = pair.split('=')
+                self._overwrite(key.strip(), value.strip())
+        self.use_model = self.configs.use_model
+        self.streaming = bool(self.configs.get('streaming', True))
+        self.feature_method = self.configs.preprocess_conf.get(
+            'feature_method', 'fbank')
+        self.augment_conf_path = data_augment_configs
+        self.model_dir_name = (f"{self.use_model}"
+                               f"{'_streaming' if self.streaming else ''}"
+                               f"_{self.feature_method}")
+        self.stop_train = False
+        self.stop_eval = False
+        self.step_losses = []   # every update's loss, a 0-d device tensor
+
+    def _overwrite(self, dotted_key, value):
+        node = self.configs
+        keys = dotted_key.split('.')
+        for k in keys[:-1]:
+            node = node[k]
+        old = node.get(keys[-1])
+        if isinstance(old, bool):
+            value = value.lower() in ('true', '1')
+        elif isinstance(old, int):
+            value = int(value)
+        elif isinstance(old, float):
+            value = float(value)
+        node[keys[-1]] = value
+
+    # ------------------------------------------------------ model and data
+
+    def _build_dataset(self, train: bool, return_raw: bool = False,
+                       manifest_override: str = None):
+        dataset_conf = self.configs.dataset_conf
+        aug_conf = load_augmentation_config(self.augment_conf_path) \
+            if (train and self.augment_conf_path) else None
+        manifest = manifest_override or (
+            dataset_conf.train_manifest if train
+            else dataset_conf.test_manifest)
+        if not train and manifest_override is None:
+            feat_manifest = manifest.replace('manifest', 'manifest_features')
+            if feat_manifest != manifest and os.path.exists(feat_manifest) \
+                    and dataset_conf.get('use_precomputed_features', True):
+                logger.info(f"eval uses precomputed features: "
+                            f"{feat_manifest}")
+                manifest = feat_manifest
+        # the CMVN is in the model (GlobalCMVN from mean_istd_path): the
+        # dataset yields raw features
+        return ASRDataset(
+            manifest, dataset_conf.dataset_vocab,
+            preprocess_conf=dict(self.configs.preprocess_conf),
+            min_duration=dataset_conf.get('min_duration', 0.5),
+            max_duration=dataset_conf.get('max_duration', 20) if train else -1,
+            manifest_type=dataset_conf.get('manifest_type', 'txt'),
+            augmentation_config=aug_conf, train=train, return_raw=return_raw)
+
+    def _build_model(self, input_dim, vocab_size):
+        """The model on the trainer's device, float32 parameters; with
+        ``enable_amp`` computing in bf16 (cast at use)."""
+        model = build_model(
+            self.use_model, input_dim, vocab_size, streaming=self.streaming,
+            encoder_conf=dict(self.configs.get('encoder_conf', {}) or {}),
+            decoder_conf=dict(self.configs.get('decoder_conf', {}) or {}),
+            model_conf=dict(self.configs.get('model_conf', {}) or {}),
+            mean_istd_path=self.configs.dataset_conf.mean_istd_path)
+        model.to(self.device)
+        if self.configs.get('train_conf', {}).get('enable_amp', False):
+            model.set_compute_dtype(torch.bfloat16, at_use=True)
+        return model
+
+    @staticmethod
+    def _init_params(model, seed=TRAIN_SEED):
+        return model.init_weights(torch.Generator().manual_seed(seed))
+
+    def _create_state(self, model) -> TrainState:
+        train_conf = self.configs.get('train_conf', {}) or {}
+        return create_train_state(
+            model, dict(self.configs.get('optimizer_conf', {}) or {}),
+            grad_clip=float(train_conf.get('grad_clip', 5.0)))
+
+    # ----------------------------------------------------------- checkpoints
+
+    def _save_dir(self, save_model_path):
+        return os.path.join(save_model_path, self.model_dir_name)
+
+    def _save_checkpoint(self, save_model_path, state: TrainState, epoch,
+                         error_rate=None, test_loss=None, best=False):
+        """model.msgpack + optimizer.pt + model.state JSON; ``last_model``
+        copy and rolling deletion of ``epoch_{N-3}`` (:250-280)."""
+        base = self._save_dir(save_model_path)
+        path = os.path.join(base, 'best_model' if best else f'epoch_{epoch}')
+        os.makedirs(path, exist_ok=True)
+        save_msgpack(os.path.join(path, 'model.msgpack'),
+                     export_params(state.model))
+        torch.save(state.optimizer.state_dict(),
+                   os.path.join(path, 'optimizer.pt'))
+        metric_key = 'test_cer' if self.configs.get(
+            'metrics_type', 'cer') == 'cer' else 'test_wer'
+        with open(os.path.join(path, 'model.state'), 'w',
+                  encoding='utf-8') as f:
+            json.dump({'last_epoch': epoch, metric_key: error_rate,
+                       'test_loss': test_loss, 'step': int(state.step)}, f)
+        if not best:
+            last = os.path.join(base, 'last_model')
+            shutil.rmtree(last, ignore_errors=True)
+            shutil.copytree(path, last)
+            shutil.rmtree(os.path.join(base, f'epoch_{epoch - 3}'),
+                          ignore_errors=True)
+
+    def _load_checkpoint(self, save_model_path, state: TrainState,
+                         required: bool = False):
+        """Resume from ``<save_model_path>/<model>/last_model`` or from a
+        directory holding ``model.msgpack`` (:282-324). Returns the last
+        epoch (0 for a fresh start); ``required`` raises when there is no
+        checkpoint."""
+        if os.path.exists(os.path.join(save_model_path or '',
+                                       'model.msgpack')):
+            last = save_model_path
+        else:
+            last = os.path.join(self._save_dir(save_model_path), 'last_model')
+        model_path = os.path.join(last, 'model.msgpack')
+        if not os.path.exists(model_path):
+            if required:
+                raise FileNotFoundError(
+                    f"no checkpoint found at {save_model_path!r} (looked for "
+                    f"{model_path}); pass the models root or a checkpoint "
+                    f"dir containing model.msgpack")
+            return 0
+        state.model.load_state_dict(convert_params(load_msgpack(model_path)),
+                                    strict=True)
+        opt_path = os.path.join(last, 'optimizer.pt')
+        if os.path.exists(opt_path):
+            state.optimizer.load_state_dict(
+                torch.load(opt_path, map_location=self.device))
+        else:
+            logger.warning(f"no optimizer.pt in {last}: the optimizer "
+                           f"starts fresh")
+        last_epoch, step = 0, 0
+        state_path = os.path.join(last, 'model.state')
+        if os.path.exists(state_path):
+            with open(state_path, 'r', encoding='utf-8') as f:
+                meta = json.load(f)
+            last_epoch = meta.get('last_epoch', 0)
+            step = meta.get('step', 0)
+        state.step = int(step)
+        logger.info(f"resumed from {last} (epoch {last_epoch})")
+        return last_epoch
+
+    def _load_pretrained(self, pretrained_model, model):
+        """Shape-filtered partial load of a ``model.msgpack`` (a file or a
+        directory holding one), from either package (:326-352)."""
+        if not pretrained_model:
+            return model
+        path = pretrained_model
+        if os.path.isdir(path):
+            path = os.path.join(path, 'model.msgpack')
+        if not os.path.exists(path):
+            logger.warning(f"pretrained model missing: {path}")
+            return model
+        loaded = convert_params(load_msgpack(path))
+        current = model.state_dict()
+        keep = {k: v for k, v in loaded.items()
+                if k in current and v.shape == current[k].shape}
+        model.load_state_dict(keep, strict=False)
+        logger.info(f"pretrained load: {len(keep)} kept, "
+                    f"{len(current) - len(keep)} skipped")
+        return model
+
+    # ----------------------------------------------------------------- train
+
+    def train(self, save_model_path: str = 'models/',
+              log_dir: str = 'log/', max_epoch: int = None,
+              resume_model: str = None, pretrained_model: str = None):
+        """Train; returns the final ``TrainState``. ``log_dir`` is accepted
+        for the CLI's sake: the tensorboard writer is not ported."""
+        train_conf = self.configs.train_conf
+        dataset_conf = self.configs.dataset_conf
+        if train_conf.get('profile_steps'):
+            raise NotImplementedError(f"train_conf.profile_steps {NOT_PORTED}")
+        self._check_eval_decoder()
+        accum_grad = int(train_conf.get('accum_grad', 1))
+        batch_size = int(dataset_conf.get('batch_size', 16))
+        max_epoch = max_epoch or int(train_conf.get('max_epoch', 200))
+        log_interval = int(train_conf.get('log_interval', 100))
+        device_frontend = bool(train_conf.get('device_frontend'))
+        train_dataset = self._build_dataset(train=True,
+                                            return_raw=device_frontend)
+        test_dataset = self._build_dataset(train=False)
+        vocab_size = train_dataset.vocab_size
+        input_dim = train_dataset.feature_dim
+
+        # the train-subset probe: an augmentation-free slice of the train
+        # manifest, evenly spaced over its durations (:383-399)
+        probe_dataset = None
+        probe_size = int(train_conf.get('train_probe_size', 64))
+        if probe_size > 0:
+            probe_dataset = self._build_dataset(
+                train=False, manifest_override=dataset_conf.train_manifest)
+            stride = max(1, len(probe_dataset.manifest) // probe_size)
+            probe_dataset.manifest = \
+                probe_dataset.manifest[::stride][:probe_size]
+
+        frontend = None
+        if device_frontend:
+            from ppasr_tpu_torch.ops.frontend import make_device_frontend
+            frontend = make_device_frontend(
+                dict(self.configs.preprocess_conf),
+                load_augmentation_config(self.augment_conf_path)
+                if self.augment_conf_path else None, train=True)
+
+        sample_rate = int(self.configs.preprocess_conf.get('sample_rate',
+                                                           16000))
+        sampler = SortagradBatchSampler(len(train_dataset),
+                                        batch_size * accum_grad,
+                                        drop_last=True)
+        loader = DataLoader(train_dataset, sampler,
+                            num_workers=int(dataset_conf.get('num_workers',
+                                                             4)),
+                            time_bucket=64, label_bucket=16)
+
+        model = self._build_model(input_dim, vocab_size)
+        self._init_params(model)
+        from ppasr_tpu_torch.utils.model_summary import summary
+        summary(model)
+        self._load_pretrained(pretrained_model, model)
+        state = self._create_state(model)
+        last_epoch = self._load_checkpoint(resume_model or save_model_path,
+                                           state)
+        train_step = make_train_step(accum_grad, frontend=frontend)
+
+        best_error = float('inf')
+        best_state_path = os.path.join(self._save_dir(save_model_path),
+                                       'best_model', 'model.state')
+        if os.path.exists(best_state_path):
+            with open(best_state_path, 'r', encoding='utf-8') as f:
+                meta = json.load(f)
+            best_error = meta.get('test_cer', meta.get('test_wer'))
+            best_error = float('inf') if best_error is None else best_error
+
+        train_times = []
+        for epoch in range(last_epoch, max_epoch):
+            sampler.set_epoch(epoch)
+            epoch_start = batch_start = time.time()
+            for batch_id, (inputs, labels, in_lens, lab_lens) in \
+                    enumerate(loader):
+                reader_cost = time.time() - batch_start
+                micro = inputs.shape[0] // accum_grad
+                if micro == 0:
+                    continue
+                usable = micro * accum_grad
+                in_key, len_key = ('wav', 'wav_lens') if device_frontend \
+                    else ('speech', 'speech_lens')
+                batch = {
+                    in_key: inputs[:usable].reshape(accum_grad, micro,
+                                                    *inputs.shape[1:]),
+                    len_key: in_lens[:usable].reshape(accum_grad, micro),
+                    'text': labels[:usable].reshape(accum_grad, micro, -1),
+                    'text_lens': lab_lens[:usable].reshape(accum_grad,
+                                                           micro)}
+                batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                    self.device, non_blocking=True) for k, v in batch.items()}
+                metrics = train_step(state, batch,
+                                     fold_in(TRAIN_SEED, state.step))
+                self.step_losses.append(metrics['loss'])
+                batch_cost = time.time() - batch_start
+                train_times.append(batch_cost)
+                if batch_id % log_interval == 0:
+                    loss = float(metrics['loss'])
+                    lr = state.schedule(state.step)
+                    audio_sec = float(np.sum(in_lens[:usable])) / (
+                        sample_rate if device_frontend else 100.0)
+                    ips = audio_sec / max(batch_cost, 1e-9)
+                    eta = timedelta(seconds=int(
+                        np.mean(train_times) * (len(loader) - batch_id)
+                        * (max_epoch - epoch)))
+                    logger.info(
+                        f"epoch {epoch} batch {batch_id}/{len(loader)} "
+                        f"loss {loss:.4f} lr {lr:.8f} "
+                        f"reader_cost {reader_cost:.3f}s "
+                        f"batch_cost {batch_cost:.3f}s "
+                        f"ips {ips:.2f} audio-s/s eta {eta}")
+                    train_times = []
+                if batch_id > 0 and batch_id % 10000 == 0:
+                    self._save_checkpoint(save_model_path, state, epoch)
+                if self.stop_train:
+                    break
+                batch_start = time.time()
+
+            logger.info(f"epoch {epoch} done in "
+                        f"{timedelta(seconds=int(time.time() - epoch_start))}")
+            error_rate, test_loss = self.evaluate(
+                model=model, test_dataset=test_dataset, sample_log_n=2)
+            metric_name = self.configs.get('metrics_type', 'cer')
+            logger.info(f"epoch {epoch} test {metric_name}={error_rate:.5f} "
+                        f"loss={test_loss:.5f}")
+            if probe_dataset is not None:
+                train_err, probe_loss = self.evaluate(
+                    model=model, test_dataset=probe_dataset, sample_log_n=2)
+                logger.info(f"epoch {epoch} train-probe {metric_name}="
+                            f"{train_err:.5f} loss={probe_loss:.5f}")
+            self._save_checkpoint(save_model_path, state, epoch + 1,
+                                  error_rate, test_loss)
+            if error_rate < best_error:
+                best_error = error_rate
+                self._save_checkpoint(save_model_path, state, epoch + 1,
+                                      error_rate, test_loss, best=True)
+            if self.stop_train:
+                break
+        return state
+
+    # -------------------------------------------------------------- evaluate
+
+    def _check_eval_decoder(self):
+        name = self.configs.get('decoder', 'ctc_greedy')
+        if name != 'ctc_greedy':
+            raise NotImplementedError(
+                f"in-training evaluation with decoder {name!r} {NOT_PORTED}; "
+                f"set decoder: 'ctc_greedy'")
+
+    def evaluate(self, resume_model: str = 'models/', model=None,
+                 test_dataset=None, display_result: bool = False,
+                 max_batches: int = None, sample_log_n: int = 0,
+                 streaming_eval: bool = False):
+        """Greedy-decode the test set → (error rate, mean loss) (:710-870).
+        Without ``model`` the checkpoint at ``resume_model`` is loaded.
+        ``streaming_eval`` encodes through the chunked streaming path
+        (``models/streaming_eval``), the CER a live stream would see."""
+        self._check_eval_decoder()
+        dataset_conf = self.configs.dataset_conf
+        if test_dataset is None:
+            test_dataset = self._build_dataset(train=False)
+        vocab = test_dataset.vocab_list
+        if model is None:
+            model = self._build_model(test_dataset.feature_dim,
+                                      test_dataset.vocab_size)
+            self._load_checkpoint(resume_model, self._create_state(model),
+                                  required=True)
+        batch_size = int(dataset_conf.get(
+            'eval_batch_size', 4 * int(dataset_conf.get('batch_size', 16))))
+        sampler = SortagradBatchSampler(len(test_dataset), batch_size,
+                                        drop_last=False, shuffle=False)
+        loader = DataLoader(test_dataset, sampler, num_workers=2,
+                            shuffle_in_batch=False)
+        error_fn = cer if self.configs.get('metrics_type', 'cer') == 'cer' \
+            else wer
+        was_training = model.training
+        model.eval()
+        errors, losses = [], []
+        try:
+            with torch.no_grad(), ieee_float32():
+                for i, (inputs, labels, in_lens, lab_lens) in \
+                        enumerate(loader):
+                    if max_batches is not None and i >= max_batches:
+                        break
+                    x = torch.from_numpy(inputs).to(self.device)
+                    x_lens = torch.from_numpy(in_lens).to(self.device)
+                    if streaming_eval:
+                        from ppasr_tpu_torch.models.streaming_eval import \
+                            streaming_greedy_batch
+                        ids, mp, olens = streaming_greedy_batch(
+                            model, inputs, in_lens)
+                        results = [_collapse(ids[b, :int(olens[b])],
+                                             mp[b, :int(olens[b])], vocab)
+                                   for b in range(ids.shape[0])]
+                    else:
+                        probs, olens = model.get_encoder_out(x, x_lens)
+                        results = greedy_decoder_batch(probs, olens.cpu(),
+                                                       vocab)
+                    out = model(x, x_lens,
+                                torch.from_numpy(labels).to(self.device),
+                                torch.from_numpy(lab_lens).to(self.device))
+                    losses.append(float(out['loss']))
+                    for b, (_, text) in enumerate(results):
+                        target = labels_to_string(
+                            labels[b][:int(lab_lens[b])], vocab)
+                        e = error_fn(text, target)
+                        if display_result or len(errors) < sample_log_n:
+                            logger.info(f"ref: {target} | hyp: {text} | "
+                                        f"{e:.4f}")
+                        errors.append(e)
+                    if self.stop_eval:
+                        break
+        finally:
+            model.train(was_training)
+        error_rate = float(np.mean(errors)) if errors else float('inf')
+        test_loss = float(np.mean(losses)) if losses else float('inf')
+        return error_rate, test_loss

@@ -1,4 +1,4 @@
-"""Checkpoints: flax msgpack → numpy tree → torch ``state_dict``.
+"""Checkpoints: flax msgpack ↔ numpy tree ↔ torch ``state_dict``.
 
 The JAX package writes its parameters with ``flax.serialization.to_bytes``
 (ppasr_tpu/trainer.py:906-907) and reads them back with
@@ -13,6 +13,14 @@ the same file without flax or the ``msgpack`` package:
   ``__msgpack_chunked_array__`` dicts.
 - ``convert_params`` maps the flax parameter tree onto the port's module
   names and layouts.
+
+And the way back, so that the trainer's ``model.msgpack`` is the file both
+packages read (ppasr_tpu/trainer.py:258-261):
+
+- ``export_params`` maps a module's parameters to the flax tree
+  ``{'params': ...}`` (the inverse of ``convert_params``, by module type);
+- ``msgpack_serialize`` writes a tree of dicts and numpy arrays in flax's
+  format (``flax.serialization.to_bytes``), arrays as ext type 1.
 """
 import json
 import os
@@ -20,6 +28,7 @@ import struct
 
 import numpy as np
 import torch
+from torch import nn
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 
@@ -194,6 +203,134 @@ def convert_params(flax_tree: dict):
         name = _torch_name(path[:-1] + (leaf,))
         state[name] = torch.from_numpy(np.ascontiguousarray(value).copy())
     return state
+
+
+def _pack(value, out: list):
+    if isinstance(value, dict):
+        n = len(value)
+        out.append(bytes([0x80 | n]) if n < 16 else
+                   struct.pack('>BH', 0xde, n) if n < 1 << 16 else
+                   struct.pack('>BI', 0xdf, n))
+        for k, v in value.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(value, (list, tuple)):
+        n = len(value)
+        out.append(bytes([0x90 | n]) if n < 16 else
+                   struct.pack('>BH', 0xdc, n) if n < 1 << 16 else
+                   struct.pack('>BI', 0xdd, n))
+        for v in value:
+            _pack(v, out)
+    elif isinstance(value, str):
+        b = value.encode('utf-8')
+        n = len(b)
+        out.append(bytes([0xa0 | n]) if n < 32 else
+                   struct.pack('>BB', 0xd9, n) if n < 1 << 8 else
+                   struct.pack('>BH', 0xda, n) if n < 1 << 16 else
+                   struct.pack('>BI', 0xdb, n))
+        out.append(b)
+    elif isinstance(value, (bytes, bytearray, memoryview)):
+        b = bytes(value)
+        n = len(b)
+        out.append(struct.pack('>BB', 0xc4, n) if n < 1 << 8 else
+                   struct.pack('>BH', 0xc5, n) if n < 1 << 16 else
+                   struct.pack('>BI', 0xc6, n))
+        out.append(b)
+    elif value is None or isinstance(value, bool):
+        out.append({None: b'\xc0', False: b'\xc2', True: b'\xc3'}[value])
+    elif isinstance(value, (int, np.integer)) and not isinstance(
+            value, np.ndarray):
+        v = int(value)
+        if 0 <= v < 128:
+            out.append(bytes([v]))
+        elif -32 <= v < 0:
+            out.append(struct.pack('>b', v))
+        elif v >= 0:
+            out.append(struct.pack('>BQ', 0xcf, v))
+        else:
+            out.append(struct.pack('>Bq', 0xd3, v))
+    elif isinstance(value, float):
+        out.append(struct.pack('>Bd', 0xcb, value))
+    elif isinstance(value, np.ndarray):
+        if value.nbytes > 1 << 30:
+            raise ValueError("arrays over 2**30 bytes need flax's chunking, "
+                             "which the writer does not do")
+        arr = np.ascontiguousarray(value)
+        payload = []
+        _pack([list(arr.shape), arr.dtype.name, arr.tobytes()], payload)
+        payload = b''.join(payload)
+        n = len(payload)
+        out.append(struct.pack('>BBb', 0xc7, n, _EXT_NDARRAY) if n < 1 << 8
+                   else struct.pack('>BHb', 0xc8, n, _EXT_NDARRAY)
+                   if n < 1 << 16 else
+                   struct.pack('>BIb', 0xc9, n, _EXT_NDARRAY))
+        out.append(payload)
+    else:
+        raise TypeError(f"cannot serialize {type(value).__name__}")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """flax.serialization.msgpack_serialize without flax: a tree of dicts
+    (str keys), lists, scalars and numpy arrays → bytes."""
+    out = []
+    _pack(tree, out)
+    return b''.join(out)
+
+
+def save_msgpack(path: str, tree):
+    """Write ``tree`` to ``path`` through a temporary file."""
+    tmp = f'{path}.{os.getpid()}.tmp'
+    with open(tmp, 'wb') as f:
+        f.write(msgpack_serialize(tree))
+    os.replace(tmp, path)
+
+
+def _flax_leaf(module: nn.Module, name: str, arr: np.ndarray):
+    """(torch module, parameter name, array) → (flax leaf, array)."""
+    if name in ('bias', 'pos_bias_u', 'pos_bias_v'):
+        return name, arr
+    if isinstance(module, nn.LayerNorm):
+        return 'scale', arr
+    if isinstance(module, nn.Embedding):
+        return 'embedding', arr
+    if isinstance(module, nn.Linear):
+        return 'kernel', arr.T
+    if isinstance(module, nn.Conv1d):
+        return 'kernel', arr.transpose(2, 1, 0)
+    if isinstance(module, nn.Conv2d):
+        return 'kernel', arr.transpose(2, 3, 1, 0)
+    raise ValueError(f"no flax leaf for {type(module).__name__}.{name}")
+
+
+def export_params(module: nn.Module) -> dict:
+    """The module's parameters as the flax tree ``{'params': {...}}`` of
+    float32 numpy arrays (copies: later updates of the module leave them
+    be), the inverse of ``convert_params``: ``layers.<i>``
+    → ``layers_<i>``, ``Linear.weight [out,in]`` → ``kernel [in,out]``,
+    conv weights back to NHWC and ``[k,1,C]``, LayerNorm ``weight`` →
+    ``scale``, ``Embedding.weight`` → ``embedding``."""
+    modules = dict(module.named_modules())
+    tree = {}
+    for name, p in module.named_parameters():
+        mod_name, _, leaf = name.rpartition('.')
+        key, arr = _flax_leaf(modules[mod_name], leaf,
+                              p.detach().float().cpu().numpy().copy())
+        path = []
+        parts = mod_name.split('.') if mod_name else []
+        i = 0
+        while i < len(parts):
+            if parts[i] == 'layers' and i + 1 < len(parts) \
+                    and parts[i + 1].isdigit():
+                path.append(f'layers_{parts[i + 1]}')
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[key] = np.ascontiguousarray(arr)
+    return {'params': tree}
 
 
 def write_inference_artifact(out_dir: str, config: dict, model_msgpack: str,

@@ -73,3 +73,13 @@ def print_arguments(args=None, configs=None, title=None):
                     logger.info(f"{' ' * indent}{k}: {v}")
         _print(configs)
         logger.info("------------------------------------------------")
+
+
+def labels_to_string(labels, vocabulary, eos: int = None,
+                     blank_index: int = 0) -> str:
+    """ids → text, dropping blank, −1 padding and eos (copy of
+    ppasr_tpu/utils/common.py:101-114)."""
+    if eos is None:
+        eos = len(vocabulary) - 1
+    return "".join(vocabulary[int(t)] for t in labels
+                   if int(t) not in (blank_index, -1, eos))

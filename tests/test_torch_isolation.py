@@ -3,8 +3,9 @@ none of JAX, flax, the JAX package, msgpack, PyYAML, distutils or
 Levenshtein (the card's machine has torch, numpy and scipy, and Python 3.12
 has no distutils), and
 the predictor refuses ``use_gpu=True`` without a card. ``chip_smoke.py``
-also imports the fixture helpers in tests/make_torch_smoke_fixture.py, whose
-JAX import sits inside ``main``; importing it loads none of the above."""
+also imports the fixture helpers in tests/make_torch_smoke_fixture.py and
+tests/make_torch_train_fixture.py, whose JAX imports sit inside ``main``;
+importing them loads none of the above."""
 import ast
 import glob
 import os
@@ -63,7 +64,20 @@ def test_import_leaves_no_forbidden_module_loaded():
             "ppasr_tpu_torch.utils.itn, "
             "ppasr_tpu_torch.infer_utils.pun_predictor, "
             "ppasr_tpu_torch.infer_utils.silero, "
-            "ppasr_tpu_torch.infer_utils.vad_predictor;"
+            "ppasr_tpu_torch.infer_utils.vad_predictor, "
+            "ppasr_tpu_torch.ops.ctc, ppasr_tpu_torch.ops.label_smoothing, "
+            "ppasr_tpu_torch.ops.frontend, ppasr_tpu_torch.ops.masks, "
+            "ppasr_tpu_torch.optimizer.scheduler, "
+            "ppasr_tpu_torch.optimizer.factory, "
+            "ppasr_tpu_torch.train_state, ppasr_tpu_torch.trainer, "
+            "ppasr_tpu_torch.train, ppasr_tpu_torch.data.manifest, "
+            "ppasr_tpu_torch.data.sampler, ppasr_tpu_torch.data.dataset, "
+            "ppasr_tpu_torch.data.loader, "
+            "ppasr_tpu_torch.data.augmentor.augmentation, "
+            "ppasr_tpu_torch.data.augmentor.audio_augmentors, "
+            "ppasr_tpu_torch.data.augmentor.base, "
+            "ppasr_tpu_torch.utils.model_summary, "
+            "ppasr_tpu_torch.utils.checkpoint;"
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
