@@ -90,7 +90,23 @@ is not 0:
    memory, one ``torch.profiler`` step with its top 10 kernels), and the
    port's CTC loss forward and backward beside ``F.ctc_loss`` at the
    step's shape;
-13. timing, after the paths, whose real-time factors are thus read
+13. zoo (tests/fixtures/torch_zoo.npz and its tolerances in
+   tests/make_torch_zoo_fixture.py): DeepSpeech2, the Squeezeformer and the
+   EfficientConformer at the full width of configs/deepspeech2.yml,
+   squeezeformer.yml and efficient_conformer.yml with the fixture's seeded
+   weights (``zf.zoo_artifact``), each through ``PPASRPredictor(use_gpu=
+   True, use_device_frontend=True)``: ``predict``, ``predict_stream`` in
+   0.16 s pieces (one fbank launch per window), ``predict_batch`` over five
+   utterances (one launch) and the engine over three staggered streams,
+   greedy; every frame's argmax equal to the fixture's JAX one except
+   where JAX's top-2 margin is below ``zf.NEAR_TIE``, texts equal under
+   that rule; the first CTC log-prob rows within ``zf.LOGPROB_TOL``; for
+   the attention families one ``predict`` with attention rescoring, texts
+   equal and scores within ``zf.RESCORE_TOL``; one float32 train step
+   (dropout off, B1 without dither, the training fixture's 8 utterances),
+   loss terms and gradient norm within ``zf.TRAIN_RTOL`` of JAX's; wall
+   per call and per window;
+14. timing, after the paths, whose real-time factors are thus read
    before the process first runs the profiler: at each shape of phase 3,
    three rounds time in turn the kernel, the plain version,
    ``torch.fft.rfft`` alone on the same frames, and the kernel again, each
@@ -98,9 +114,10 @@ is not 0:
    included) and the kernel and ``rfft`` also on the device alone
    (``device_ms``, from ``torch.profiler`` recording CUDA activity only);
    and the bound. The kernel table's ``ms`` is ``call_ms`` at the window,
-   its ``launches`` the launches of phases 4, 5, 8–11 (one per streamed
-   window, one per batch) and 12 (one per micro-batch of the training
-   path), and its ``max_abs_err`` the largest of phases 3 and 5.
+   its ``launches`` the launches of phases 4, 5, 8–11 and 13 (one per
+   streamed window, one per batch) and 12 and 13 (one per micro-batch of
+   the training path), and its ``max_abs_err`` the largest of phases 3
+   and 5.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the one before it the kernel table as JSON; the last line is
@@ -144,6 +161,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, 'tests'))
 import make_torch_smoke_fixture as fx  # noqa: E402  (no JAX at import)
 import make_torch_train_fixture as tf  # noqa: E402  (no JAX at import)
+import make_torch_zoo_fixture as zf  # noqa: E402  (no JAX at import)
 
 BUILD = os.path.join(ROOT, 'build')
 AUGMENTATION = os.path.join(ROOT, 'configs', 'augmentation.json')
@@ -188,9 +206,9 @@ def device_ms(fn, iters, launches_per_call, match=None, tries=3):
     the device time that ``key_averages()`` gives for the kernels whose name
     contains ``match`` (every kernel and copy when ``match`` is None), over
     the launches it recorded, times ``launches_per_call``. A session that
-    records fewer than half the ``iters * launches_per_call`` launches, or
-    more than them, is printed and run again, up to ``tries`` sessions; then
-    this raises. It raises too if the profiler records no device time."""
+    records no device time, or fewer than half the ``iters *
+    launches_per_call`` launches, or more than them, is printed and run
+    again, up to ``tries`` sessions; then this raises."""
     want = iters * launches_per_call
     fn()
     torch.cuda.synchronize()
@@ -208,9 +226,7 @@ def device_ms(fn, iters, launches_per_call, match=None, tries=3):
                 continue
             total_us += evt.self_device_time_total
             seen += evt.count
-        if total_us <= 0:
-            raise RuntimeError("torch.profiler recorded no device time")
-        if want / 2 <= seen <= want:
+        if total_us > 0 and want / 2 <= seen <= want:
             return total_us / seen * launches_per_call / 1e3, seen
         print(f"  profiler session recorded {seen} of {want} launches; "
               f"run again", flush=True)
@@ -1340,6 +1356,119 @@ def train_path(card, dev):
     return launches
 
 
+def zoo_family(card, dev, use_model, data, utts):
+    """Zoo phase, one family at its config's full width with the fixture's
+    seeded weights: the greedy paths and the CTC log-prob rows (and, for
+    the attention families, rescoring) against the fixture's JAX outputs,
+    then one float32 train step. Returns the fbank launches of its
+    streamed windows, its batch and its training step."""
+    artifact = zf.zoo_artifact(use_model, os.path.join(BUILD,
+                                                       f'zoo_{use_model}'))
+    pred, build_s = timed(lambda: PPASRPredictor(
+        model_path=artifact, use_gpu=True, use_device_frontend=True))
+    n_params = sum(p.numel() for p in pred.model.parameters())
+    print(f"  {use_model}: {n_params / 1e6:.2f} M parameters on "
+          f"{pred.device}; predictor built and warmed up in {build_s:.2f} s",
+          flush=True)
+    launches, walls = 0, {}
+    for path, run in zf.path_runs(pred, StreamingBatchEngine, utts).items():
+        before = fbank_cuda.launches
+        with fx.PosteriorRecorder(predict_module, greedy_module) as rec:
+            texts, walls[path] = timed(run)
+        launches += fbank_cuda.launches - before
+        key = f'{use_model}_{path}'
+        want = [str(t) for t in data[key]]
+        bad = zf.frame_failures(texts, rec.utts, want, data[key + '_ids'],
+                                data[key + '_margins'],
+                                data[key + '_frames'])
+        diff = sum(int((np.asarray(u[0]) != 0).sum()) for u in rec.utts)
+        print(f"  {path}: {texts}; non-blank frames {diff}", flush=True)
+        if bad:
+            raise AssertionError(f"{use_model} {path} breaks the near-tie "
+                                 f"rule against JAX: {bad}")
+    windows = stream_windows(pred, utts)
+    if launches != windows + 1:
+        raise AssertionError(f"{use_model}: {launches} fbank launches for "
+                             f"{windows} streamed windows and one batch")
+
+    feat, t = fx.host_features(pred, utts[:1])
+    with torch.inference_mode(), ieee_float32():
+        lp, olens = pred.model.get_ctc_log_probs(
+            torch.from_numpy(feat).to(dev), torch.from_numpy(t).to(dev))
+    rows = lp[0, :zf.N_ROWS].float().cpu().numpy()
+    err = float(np.abs(rows - data[f'{use_model}_logprobs']).max())
+    if not (torch.isfinite(lp).all() and lp.shape[-1] == pred.vocab_size
+            and int(olens[0]) > zf.N_ROWS):
+        raise AssertionError(f"{use_model}: bad log-probs {tuple(lp.shape)}")
+    audio_s = sum(len(p) for p in utts) / 16000.0
+    print(f"  on {card}: CTC log-probs max |Δ| {err:.3g} against JAX "
+          f"(tolerance {zf.LOGPROB_TOL:g}); wall per call: predict "
+          f"{walls['offline'] / len(utts) * 1e3:.2f} ms, predict_stream "
+          f"{walls['stream'] / windows * 1e3:.2f} ms per window "
+          f"({windows} windows), predict_batch {walls['batch'] * 1e3:.2f} "
+          f"ms for {len(fx.batch_utts(utts))} utterances, engine "
+          f"{walls['engine'] * 1e3:.2f} ms for 3 streams; {audio_s:.3f} s "
+          f"of audio", flush=True)
+    if err > zf.LOGPROB_TOL:
+        raise AssertionError(f"{use_model}: CTC log-probs differ from JAX's "
+                             f"by {err:.3g}")
+    del pred
+
+    if use_model in zf.RESCORED:
+        res, _ = timed(lambda: PPASRPredictor(
+            model_path=artifact, use_gpu=True,
+            decoder='attention_rescoring',
+            decoder_configs=dict(zf.RESCORE_CONF)))
+        out, wall = timed(lambda: [res.predict(p) for p in utts])
+        want = [str(t) for t in data[f'{use_model}_rescore']]
+        want_s = data[f'{use_model}_rescore_scores']
+        d = [abs(r['score'] - float(w)) for r, w in zip(out, want_s)]
+        print(f"  rescoring: {[r['text'] for r in out]}; max |Δscore| "
+              f"{max(d):.3g} (tolerance {zf.RESCORE_TOL:g}); wall per call "
+              f"{wall / len(utts) * 1e3:.2f} ms", flush=True)
+        if max(d) > zf.RESCORE_TOL or any(
+                r['text'] != w for r, w in zip(out, want)):
+            raise AssertionError(f"{use_model} rescoring differs from JAX: "
+                                 f"{out} != {want} / {want_s.tolist()}")
+        del res
+
+    model, conf = zf.zoo_model(use_model)
+    model.to(dev)
+    state = create_train_state(model, dict(conf.optimizer_conf),
+                               float(conf.train_conf.grad_clip))
+    step = make_train_step(1, make_device_frontend({'n_mels': 80}),
+                           deterministic=True)
+    batch = dict(zip(('wav', 'wav_lens', 'text', 'text_lens'),
+                     [t[None] for t in train_tensors(dev)]))
+    before = fbank_cuda.launches
+    metrics, wall = timed(lambda: step(state, batch, 0))
+    launches += fbank_cuda.launches - before
+    print(f"  train step (float32, dropout off, B1 without dither, 8 "
+          f"utterances): {wall * 1e3:.1f} ms", flush=True)
+    names = ('loss', 'loss_ctc', 'grad_norm') if use_model == 'deepspeech2' \
+        else ('loss', 'loss_ctc', 'loss_att', 'grad_norm')
+    for k in names:
+        check_close(f"{use_model} step-0 {k}", metrics[k].item(),
+                    float(data[f'{use_model}_{k}']), zf.TRAIN_RTOL)
+    del model, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zoo_path(card, dev):
+    """Phase 13: the three other families through every entry point and
+    the trainer (``zoo_family``). Returns their fbank launches."""
+    data = np.load(zf.OUT)
+    utts = zf.pcms()
+    launches = 0
+    for use_model in zf.FAMILIES:
+        t0 = time.time()
+        launches += zoo_family(card, dev, use_model, data, utts)
+        print(f"  {use_model}: {time.time() - t0:.2f} s", flush=True)
+    print(f"  fbank launches on the zoo paths: {launches}", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1410,6 +1539,10 @@ def main():
     launches += train_path(card, dev)
     train_timing(card, dev)
     phase('train', t0)
+
+    t0 = time.time()
+    launches += zoo_path(card, dev)
+    phase('zoo', t0)
 
     t0 = time.time()
     entry = time_kernel(shapes)

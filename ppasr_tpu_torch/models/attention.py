@@ -6,9 +6,12 @@ pos_bias_u/v [H, dk] and no rel-shift (:117-128). The key/value cache is
 passed in by the encoder as tensors of a fixed size and prepended along
 time; masked entries are re-zeroed after the softmax, so fully masked rows
 give zeros rather than NaN. Dropout on the attention probabilities
-(:142). ``out_init_scale`` is the depth-scaled init of ``linear_out``. The
-Squeezeformer options (adaptive scale, positional bias) come with that
-model (ROADMAP Queue A, model zoo).
+(:142). ``out_init_scale`` is the depth-scaled init of ``linear_out``.
+
+The Squeezeformer's options (:33-50, :76-78): ``adaptive_scale`` applies
+``ada_scale``·x + ``ada_bias`` to the query, key and value inputs;
+``pos_bias`` gives ``linear_pos`` a bias; ``init_weights`` is its
+scale-aware init, U(±n_feat^-0.5) for every projection, biases included.
 """
 import math
 
@@ -20,22 +23,33 @@ from ppasr_tpu_torch.models.base import Dropout, Linear
 
 class MultiHeadedAttention(nn.Module):
     def __init__(self, n_head: int, n_feat: int, rel_pos: bool = False,
-                 dropout_rate: float = 0.0, out_init_scale: float = 1.0):
+                 dropout_rate: float = 0.0, out_init_scale: float = 1.0,
+                 adaptive_scale: bool = False, pos_bias: bool = False,
+                 init_weights: bool = False):
         super().__init__()
         if n_feat % n_head:
             raise ValueError(f"n_feat {n_feat} not divisible by {n_head} heads")
         self.n_head, self.n_feat = n_head, n_feat
         self.d_k = n_feat // n_head
         self.rel_pos = rel_pos
-        self.linear_q = Linear(n_feat, n_feat)
-        self.linear_k = Linear(n_feat, n_feat)
-        self.linear_v = Linear(n_feat, n_feat)
-        self.linear_out = Linear(n_feat, n_feat, init_scale=out_init_scale)
+        bound = n_feat ** -0.5 if init_weights else None
+        self.linear_q = Linear(n_feat, n_feat, init_bound=bound)
+        self.linear_k = Linear(n_feat, n_feat, init_bound=bound)
+        self.linear_v = Linear(n_feat, n_feat, init_bound=bound)
+        self.linear_out = Linear(
+            n_feat, n_feat, init_bound=bound,
+            init_scale=1.0 if init_weights else out_init_scale)
         self.dropout = Dropout(dropout_rate)
         if rel_pos:
-            self.linear_pos = Linear(n_feat, n_feat, bias=False)
+            self.linear_pos = Linear(n_feat, n_feat, bias=pos_bias,
+                                     init_bound=bound)
             self.pos_bias_u = nn.Parameter(torch.zeros(n_head, self.d_k))
             self.pos_bias_v = nn.Parameter(torch.zeros(n_head, self.d_k))
+        if adaptive_scale:
+            self.ada_scale = nn.Parameter(torch.ones(1, 1, n_feat))
+            self.ada_bias = nn.Parameter(torch.zeros(1, 1, n_feat))
+        else:
+            self.ada_scale = None
 
     def _heads(self, x, proj):
         b, t, _ = x.shape
@@ -47,6 +61,11 @@ class MultiHeadedAttention(nn.Module):
         attend, S counting the cache; pos_emb [1 or B, S, D]; kv_cache
         (k, v) each [B, C, H, dk]. Returns (out [B, T1, D], (k_all, v_all)
         each [B, C+T2, H, dk])."""
+        if self.ada_scale is not None:
+            scale = self.ada_scale.to(query.dtype)
+            bias = self.ada_bias.to(query.dtype)
+            query, key, value = (scale * query + bias, scale * key + bias,
+                                 scale * value + bias)
         q = self._heads(query, self.linear_q)
         k = self._heads(key, self.linear_k)
         v = self._heads(value, self.linear_v)

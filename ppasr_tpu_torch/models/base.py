@@ -20,12 +20,23 @@ get the dtype:
 q/256, the mask drawn from 8-bit random integers of the generator the
 caller sets (``dropout_generator``), and kept values divided by q/256.
 
+``BatchNorm`` is flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over
+the last axis: in ``train()`` mode it normalizes by the batch's mean and
+biased variance over every other axis and moves the running statistics
+by 0.1 towards them; in ``eval()`` mode it uses the running statistics.
+Statistics, parameters and the arithmetic are float32, as for LayerNorm.
+
 ``init_parameters`` draws a fresh model from the JAX model's distributions:
 Kaiming uniform (fan in, gain 2) for Dense and Conv kernels, times
 ``init_scale`` on the output projection of every encoder residual branch
 (``scaled_kaiming``, the depth-scaled init (2·num_blocks)^-1/2), zero
-biases, N(0, 1) embeddings, Xavier uniform ``pos_bias_u/v`` and unit
-LayerNorms. Same distributions, not the same bits."""
+biases, N(0, 1) embeddings, Xavier uniform ``pos_bias_u/v``, unit
+LayerNorms and BatchNorms; U(−b, b) kernels and biases where a layer sets
+``init_bound`` b (``symmetric_uniform``, the Squeezeformer's scale-aware
+init), ``ada_scale`` 1 and ``ada_bias`` 0; for ``nn.LSTM`` and ``nn.GRU``
+the flax cells' LeCun normal (truncated at two deviations) input kernels,
+orthogonal recurrent kernels per gate and zero biases. Same distributions,
+not the same bits."""
 import contextlib
 import json
 import math
@@ -70,6 +81,36 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(x.dtype)
 
 
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last axis
+    (see the module docstring): ``weight``/``bias`` are flax's
+    ``scale``/``bias``, the ``running_mean``/``running_var`` buffers its
+    ``batch_stats`` ``mean``/``var``."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer('running_mean', torch.zeros(num_features))
+        self.register_buffer('running_var', torch.ones(num_features))
+
+    def forward(self, x):
+        xf = x.float()
+        if self.training:
+            dims = tuple(range(xf.ndim - 1))
+            mean = xf.mean(dim=dims)
+            var = (xf * xf).mean(dim=dims) - mean * mean
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.to(x.dtype)
+
+
 class GlobalCMVN(nn.Module):
     """(x - mean) * istd with constants from ``mean_istd.json``; buffers,
     not parameters, and not part of the state dict."""
@@ -105,6 +146,7 @@ class _CastAtUse:
     Embed); ``init_scale`` scales the Kaiming init (``scaled_kaiming``)."""
     compute_dtype = None
     init_scale = 1.0
+    init_bound = None
 
     def _cast(self, x):
         dt = self.compute_dtype
@@ -115,15 +157,21 @@ class _CastAtUse:
 
 
 class Linear(_CastAtUse, nn.Linear):
-    def __init__(self, in_features, out_features, bias=True, init_scale=1.0):
+    def __init__(self, in_features, out_features, bias=True, init_scale=1.0,
+                 init_bound=None):
         super().__init__(in_features, out_features, bias=bias)
         self.init_scale = init_scale
+        self.init_bound = init_bound
 
     def forward(self, x):
         return F.linear(*self._cast(x))
 
 
 class Conv1d(_CastAtUse, nn.Conv1d):
+    def __init__(self, *args, init_bound=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.init_bound = init_bound
+
     def forward(self, x):
         return self._conv_forward(*self._cast(x))
 
@@ -189,16 +237,52 @@ def _uniform_(t, bound, generator):
                 .mul_(2 * bound).sub_(bound).to(t.dtype))
 
 
+def _lecun_normal_(t, generator):
+    """flax's ``lecun_normal``: truncated normal at ±2 deviations, scaled so
+    the variance is 1 / fan_in, for a torch [out, in] weight."""
+    std = math.sqrt(1.0 / t.shape[1]) / .87962566103423978
+    with torch.no_grad():
+        x = torch.empty(t.shape, dtype=torch.float64)
+        nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        t.copy_((x * std).to(t.dtype))
+
+
+def _init_rnn(m, generator):
+    """flax ``OptimizedLSTMCell`` / ``GRUCell`` initializers on the gate
+    blocks of a single-layer ``nn.LSTM`` or ``nn.GRU``."""
+    h = m.hidden_size
+    with torch.no_grad():
+        for w in m.weight_ih_l0.split(h):
+            _lecun_normal_(w, generator)
+        for w in m.weight_hh_l0.split(h):
+            q = torch.empty(h, h, dtype=torch.float64)
+            nn.init.orthogonal_(q, generator=generator)
+            w.copy_(q.to(w.dtype))
+        nn.init.zeros_(m.bias_ih_l0)
+        nn.init.zeros_(m.bias_hh_l0)
+
+
 def init_parameters(module: nn.Module, generator: torch.Generator = None):
     """Fresh parameters from the JAX model's initializers (see the module
     docstring), drawn on the CPU from ``generator``."""
     for m in module.modules():
-        if isinstance(m, (Linear, Conv1d, Conv2d)):
+        if isinstance(m, (Linear, Conv1d, Conv2d)) and m.init_bound:
+            _uniform_(m.weight, m.init_bound, generator)
+            if m.bias is not None:
+                _uniform_(m.bias, m.init_bound, generator)
+        elif isinstance(m, (Linear, Conv1d, Conv2d)):
             fan_in = m.weight[0].numel()
             _uniform_(m.weight, math.sqrt(6.0 * m.init_scale ** 2 / fan_in),
                       generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.LSTM, nn.GRU)):
+            _init_rnn(m, generator)
+        elif isinstance(m, BatchNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
         elif isinstance(m, Embedding):
             with torch.no_grad():
                 m.weight.copy_(torch.randn(m.weight.shape,
@@ -210,6 +294,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator = None):
             p = getattr(m, name, None)
             if isinstance(p, nn.Parameter):
                 _uniform_(p, math.sqrt(6.0 / sum(p.shape)), generator)
+        if isinstance(getattr(m, 'ada_scale', None), nn.Parameter):
+            nn.init.ones_(m.ada_scale)
+            nn.init.zeros_(m.ada_bias)
     return module
 
 
@@ -224,10 +311,10 @@ def cast_at_use(module: nn.Module, dtype: torch.dtype):
 
 def cast_for_compute(module: nn.Module, dtype: torch.dtype):
     """Cast the floating parameters and buffers of every submodule to
-    ``dtype`` in place, except those of ``LayerNorm`` and ``GlobalCMVN``,
-    which stay float32 as flax keeps them."""
+    ``dtype`` in place, except those of ``LayerNorm``, ``BatchNorm`` and
+    ``GlobalCMVN``, which stay float32 as flax keeps them."""
     for m in module.modules():
-        if isinstance(m, (LayerNorm, GlobalCMVN)):
+        if isinstance(m, (LayerNorm, BatchNorm, GlobalCMVN)):
             continue
         for p in m.parameters(recurse=False):
             p.data = p.data.to(dtype)
@@ -235,3 +322,23 @@ def cast_for_compute(module: nn.Module, dtype: torch.dtype):
             if b.is_floating_point():
                 setattr(m, name, b.to(dtype))
     return module
+
+
+class ASRModel(nn.Module):
+    """What every model family shares: its compute dtype and its fresh
+    initialization."""
+
+    def set_compute_dtype(self, dtype: torch.dtype, at_use: bool = False):
+        """Run in ``dtype`` from now on (the JAX model's ``dtype``): the
+        weights cast once, or with ``at_use`` kept float32 and cast at each
+        call."""
+        if at_use:
+            cast_at_use(self, dtype)
+        else:
+            cast_for_compute(self, dtype)
+        return self
+
+    def init_weights(self, generator: torch.Generator = None):
+        """Fresh parameters from the JAX model's initializers
+        (``init_parameters``)."""
+        return init_parameters(self, generator)

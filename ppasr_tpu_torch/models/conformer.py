@@ -30,10 +30,8 @@ dtype over float32 parameters (``models/base.cast_at_use``), for training.
 from typing import Optional
 
 import torch
-from torch import nn
 
-from ppasr_tpu_torch.models.base import (cast_at_use, cast_for_compute,
-                                         dropout_generator, init_parameters)
+from ppasr_tpu_torch.models.base import ASRModel, dropout_generator
 from ppasr_tpu_torch.models.conformer_encoder import (ConformerEncoder,
                                                       StreamingState)
 from ppasr_tpu_torch.models.ctc import CTCHead
@@ -44,7 +42,21 @@ from ppasr_tpu_torch.ops.common import (IGNORE_ID, add_sos_eos,
 from ppasr_tpu_torch.ops.label_smoothing import label_smoothing_loss
 
 
-class ConformerModel(nn.Module):
+class ConformerModel(ASRModel):
+    """The hybrid CTC + attention model. ``encoder_class`` and
+    ``encoder_conf_for`` (the encoder's options for ``streaming``) are the
+    hooks the Squeezeformer and the EfficientConformer set; the rest, the
+    loss and the entry points included, is the same for the three."""
+    encoder_class = ConformerEncoder
+    output_factor = 1      # time reduction after the input layer
+
+    @staticmethod
+    def encoder_conf_for(conf: dict, streaming: bool) -> dict:
+        conf = dict(conf)
+        if streaming:
+            conf.update(use_dynamic_chunk=True, causal=True)
+        return conf
+
     def __init__(self, input_size: int, vocab_size: int,
                  streaming: bool = True, encoder_conf: Optional[dict] = None,
                  decoder_conf: Optional[dict] = None, ctc_weight: float = 0.3,
@@ -53,10 +65,7 @@ class ConformerModel(nn.Module):
                  cmvn_mean: Optional[tuple] = None,
                  cmvn_istd: Optional[tuple] = None):
         super().__init__()
-        conf = dict(encoder_conf or {})
-        if streaming:
-            conf['use_dynamic_chunk'] = True
-            conf['causal'] = True
+        conf = self.encoder_conf_for(dict(encoder_conf or {}), streaming)
         self.streaming = streaming
         self.vocab_size = vocab_size
         self.ctc_weight = ctc_weight
@@ -64,8 +73,8 @@ class ConformerModel(nn.Module):
         self.length_normalized_loss = length_normalized_loss
         self.reverse_weight = reverse_weight
         self.sos = self.eos = vocab_size - 1
-        self.encoder = ConformerEncoder(input_size, cmvn_mean=cmvn_mean,
-                                        cmvn_istd=cmvn_istd, **conf)
+        self.encoder = self.encoder_class(input_size, cmvn_mean=cmvn_mean,
+                                          cmvn_istd=cmvn_istd, **conf)
         self.decoder = (BiTransformerDecoder(
             vocab_size, self.encoder.output_size, **dict(decoder_conf or {}))
             if ctc_weight < 1.0 else None)
@@ -78,21 +87,6 @@ class ConformerModel(nn.Module):
     @property
     def right_context(self):
         return self.encoder.right_context
-
-    def set_compute_dtype(self, dtype: torch.dtype, at_use: bool = False):
-        """Run in ``dtype`` from now on (the JAX model's ``dtype``): the
-        weights cast once, or with ``at_use`` kept float32 and cast at each
-        call."""
-        if at_use:
-            cast_at_use(self, dtype)
-        else:
-            cast_for_compute(self, dtype)
-        return self
-
-    def init_weights(self, generator: torch.Generator = None):
-        """Fresh parameters from the JAX model's initializers
-        (``models/base.init_parameters``)."""
-        return init_parameters(self, generator)
 
     def forward(self, speech, speech_lens, text, text_lens, rngs=None):
         """Training loss (ppasr_tpu/models/conformer.py:65-106). speech

@@ -41,7 +41,7 @@ from ppasr_tpu_torch.models.base import (Dropout, GlobalCMVN, LayerNorm,
                                          compute_dtype_of, dtype_scalar,
                                          get_activation, swish)
 from ppasr_tpu_torch.models.convolution import ConvolutionModule
-from ppasr_tpu_torch.models.embedding import sinusoid_table
+from ppasr_tpu_torch.models.embedding import chunk_positions, sinusoid_table
 from ppasr_tpu_torch.models.positionwise import PositionwiseFeedForward
 from ppasr_tpu_torch.models.subsampling import subsampling_class
 from ppasr_tpu_torch.ops.masks import add_optional_chunk_mask, make_non_pad_mask
@@ -236,16 +236,6 @@ class ConformerEncoder(nn.Module):
             cnn_cache=z(self.num_blocks, batch_size, self.lorder,
                         self.output_size))
 
-    def _chunk_pos(self, offsets, c: int, s: int):
-        """[B, S, D] positional rows for key slots 0..S-1 of each stream:
-        rows offset−C+j of the table left-padded by C zero rows, with the
-        slice start clamped into the padded table as ``dynamic_slice``
-        clamps it."""
-        start = offsets.to(torch.long).clamp(0, c + self.max_len - s)
-        idx = start[:, None] + torch.arange(s, device=offsets.device) - c
-        rows = self.pe[idx.clamp(min=0)].to(self.dtype)
-        return rows * (idx >= 0)[..., None].to(rows.dtype)
-
     def forward_chunk(self, xs, state: StreamingState):
         """One streaming chunk. xs [B, T_in, D] with
         T_in = (chunk−1)·subsampling + right_context + 1.
@@ -255,7 +245,8 @@ class ConformerEncoder(nn.Module):
         b, t_out = xs.shape[0], xs.shape[1]
         s = c + t_out
         offsets = state.offset.reshape(-1).expand(b)
-        xs, pos_emb = self._apply_pos(xs, self._chunk_pos(offsets, c, s))
+        xs, pos_emb = self._apply_pos(
+            xs, chunk_positions(self.pe.to(self.dtype), offsets, c, s))
 
         # key slot j is valid iff j ≥ C − cache_len (cache right-aligned) or
         # it is in the current chunk

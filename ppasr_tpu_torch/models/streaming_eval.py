@@ -9,12 +9,16 @@ window's posteriors on the device, so only [B, chunk] id and score planes
 go to the host. Both functions run under ``predict.ieee_float32()``.
 
 The JAX functions take ``params`` and jitted step functions; the port's
-take the module, which holds its weights, and run eagerly.
+take the module, which holds its weights, and run eagerly. The attention
+families run here, their output lengths divided by the model's
+``output_factor``; DeepSpeech2, whose step is not this chunk API, raises as
+the JAX trainer does for it (ppasr_tpu/trainer.py:790-796).
 """
 import numpy as np
 import torch
 
 from ppasr_tpu_torch.decoders.greedy import ctc_argmax
+from ppasr_tpu_torch.models.deepspeech2 import DeepSpeech2Model
 from ppasr_tpu_torch.predict import ieee_float32
 
 SUBSAMPLING = 4
@@ -39,7 +43,7 @@ def _window_plan(inputs, chunk):
 
 
 def _out_lens(model, in_lens, t_cap):
-    out_factor = getattr(model, 'output_factor', 1)
+    out_factor = model.output_factor
     olens = np.maximum(np.asarray(in_lens) - CONTEXT, 0) // SUBSAMPLING + 1
     olens = (olens + out_factor - 1) // out_factor
     return np.minimum(olens, t_cap).astype(np.int32)
@@ -48,6 +52,11 @@ def _out_lens(model, in_lens, t_cap):
 def _run_windows(model, inputs, chunk, left_chunks, reduce):
     """[reduce(probs [B, chunk, V]) for each window], the windows run in
     order on the model's device with one shared streaming state."""
+    if isinstance(model, DeepSpeech2Model):
+        raise NotImplementedError(
+            "streaming_eval drives the attention-family chunk API "
+            "(get_encoder_out_chunk with a ring-cache state); use the "
+            "predictor's predict_stream for deepspeech2")
     device = next(model.parameters()).device
     x, n_win, window, stride = _window_plan(inputs, chunk)
     out = []

@@ -1,8 +1,9 @@
 """Kaldi-compatible log-mel fbank: numpy host path and plain torch path.
 
 Counterpart of ppasr_tpu/ops/fbank.py. The numpy functions are copies of
-:30-159 there (povey window, DFT basis, mel triangles, snip-edges framing,
-``fbank_numpy``), used by the host featurizer. The torch functions are the
+:30-213 there (povey window, DFT basis, mel triangles, snip-edges framing,
+``fbank_numpy``, and the ``mfcc_numpy`` and ``linear_numpy`` features with
+``dct_matrix`` and ``lifter_coeffs``), used by the host featurizer. The torch functions are the
 plain version of the fused fbank kernel (``ops/fbank_cuda.py``,
 ``csrc/fbank.cu``), which replaces ppasr_tpu/ops/fbank_pallas.py
 ``_fbank_kernel``:
@@ -158,6 +159,60 @@ def fbank_numpy(waveform: np.ndarray, sample_rate: int = 16000,
     if use_log_fbank:
         mel = np.log(np.maximum(mel, EPSILON))
     return mel.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def dct_matrix(num_ceps: int, num_mel_bins: int) -> np.ndarray:
+    """[num_mel_bins, num_ceps] orthonormal DCT-II basis (kaldi layout)."""
+    n = np.arange(num_mel_bins)[:, None]
+    k = np.arange(num_ceps)[None, :]
+    dct = np.cos(np.pi * k * (2 * n + 1) / (2.0 * num_mel_bins))
+    dct *= np.sqrt(2.0 / num_mel_bins)
+    dct[:, 0] = 1.0 / np.sqrt(num_mel_bins)
+    return dct.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def lifter_coeffs(num_ceps: int, cepstral_lifter: float = 22.0) -> np.ndarray:
+    i = np.arange(num_ceps)
+    return (1.0 + 0.5 * cepstral_lifter * np.sin(np.pi * i / cepstral_lifter)
+            ).astype(np.float32)
+
+
+def mfcc_numpy(waveform: np.ndarray, sample_rate: int = 16000,
+               num_mel_bins: int = 80, num_ceps: int = 40,
+               frame_length_ms: float = 25.0, frame_shift_ms: float = 10.0,
+               dither: float = 0.0, cepstral_lifter: float = 22.0,
+               rng: np.random.Generator = None) -> np.ndarray:
+    """[T, num_ceps] kaldi-style MFCC (log-mel → DCT → liftering)."""
+    logmel = fbank_numpy(waveform, sample_rate, num_mel_bins,
+                         frame_length_ms, frame_shift_ms, dither, rng=rng)
+    ceps = logmel @ dct_matrix(num_ceps, num_mel_bins)
+    if cepstral_lifter != 0.0:
+        ceps = ceps * lifter_coeffs(num_ceps, cepstral_lifter)[None, :]
+    return ceps.astype(np.float32)
+
+
+def linear_numpy(samples: np.ndarray, sample_rate: int,
+                 frame_shift_ms: float = 10.0, frame_length_ms: float = 20.0,
+                 eps: float = 1e-14) -> np.ndarray:
+    """[T, 161] log power spectrogram of float samples in [-1, 1]: hanning
+    window, 20 ms / 10 ms at 16 kHz, the one-sided power scaled by the
+    window's energy and the rate, bins up to the Nyquist frequency."""
+    shift = int(MILLISECONDS_TO_SECONDS * sample_rate * frame_shift_ms)
+    size = int(MILLISECONDS_TO_SECONDS * sample_rate * frame_length_ms)
+    frames = _frame_signal(np.asarray(samples, np.float32), size, shift)
+    if frames.shape[0] == 0:
+        return np.zeros((0, size // 2 + 1), np.float32)
+    window = np.hanning(size).astype(np.float32)
+    spec = np.fft.rfft(frames * window[None, :], axis=1)
+    power = np.abs(spec) ** 2
+    scale = np.sum(window ** 2) * sample_rate
+    power[:, 1:-1] *= 2.0 / scale
+    power[:, (0, -1)] /= scale
+    freqs = float(sample_rate) / size * np.arange(power.shape[1])
+    ind = np.where(freqs <= sample_rate / 2)[0][-1] + 1
+    return np.log(power[:, :ind] + eps).astype(np.float32)
 
 
 # ------------------------------------------------------------------ torch path

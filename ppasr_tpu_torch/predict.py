@@ -1,5 +1,6 @@
 """Inference runtime: offline, batched, long-audio and streaming
-(counterpart of ppasr_tpu/predict.py:37-688 for the Conformer).
+(counterpart of ppasr_tpu/predict.py:37-688), for the four model families
+(``models/factory``).
 
 - ``predict`` (:331-353): host fbank → padded 1-second bucket → full-context
   encoder → greedy, beam or rescoring decode.
@@ -23,7 +24,19 @@
   one (``is_end``) is a rescoring pass over the encoder outputs and
   posteriors the chunk steps kept on the device (:641-661).
 - ``_run_chunk`` and the running-RMS gain offset (:607-652), including the
-  host round trip of the features between the fbank and the encoder.
+  host round trip of the features between the fbank and the encoder. The
+  chunk math is the JAX predictor's for every family (:140-150): a window
+  of (chunk−1)·4 + 7 frames, a stride of chunk·4, (t − 7) // 4 + 1 output
+  frames, divided (rounding up) by the model's ``output_factor`` (the
+  EfficientConformer's strides); DeepSpeech2's step takes the window's
+  frame count and returns its own output length (:632-635) and its state
+  is the RNNs' (h, c). That math assumes ×4 subsampling: an input layer
+  that subsamples otherwise streams wrongly in both packages (ROADMAP
+  Queue C).
+- The device frontend (``use_device_frontend=True``) is the fbank kernel:
+  with ``feature_method`` ``'mfcc'`` or ``'linear'`` it raises, where the
+  JAX predictor runs the fbank in the stream regardless and the host
+  features in ``predict_batch`` (:182-196).
 - ``_init_decoder`` (:216-287): ``decoder='ctc_beam_search'``, configured
   by ``decoder_configs`` or the configs' ``ctc_beam_search_decoder_conf``:
   ``backend`` ``'torch'`` (or ``'jax'``, the JAX package's name; the
@@ -32,7 +45,8 @@
   ``.klm`` language model goes to ``'native'``. ``decoder=
   'attention_rescoring'``: the on-device beam with the same options, then
   ``decoders/rescoring``; ``rescore_ctc_weight`` defaults to the model's
-  ``ctc_weight`` and ``max_hyp_len`` to 200.
+  ``ctc_weight`` and ``max_hyp_len`` to 200. DeepSpeech2 has no attention
+  decoder: rescoring raises for it (JAX falls back to greedy, :233-235).
 - ``use_pun`` and ``is_itn`` on every entry point: punctuation from
   ``infer_utils/pun_predictor`` on the model's device (``pun_model_dir``,
   else the committed artifact), then ``utils/itn``.
@@ -204,6 +218,12 @@ class PPASRPredictor:
 
         self.audio_featurizer = AudioFeaturizer(**preprocess_conf,
                                                 train=False)
+        if use_device_frontend and \
+                self.audio_featurizer._feature_method != 'fbank':
+            raise ValueError(
+                f"the device frontend computes fbank features only; "
+                f"feature_method is "
+                f"{self.audio_featurizer._feature_method!r}")
         # streaming featurizer: the gain comes from a running RMS estimate
         # (an additive log-mel offset per window), not from re-normalizing
         # each partial buffer
@@ -265,6 +285,8 @@ class PPASRPredictor:
         self._beam_decoder = None
         self._rescorer = None
         if self.decoder_name == 'attention_rescoring':
+            if self.use_model == 'deepspeech2':
+                raise ValueError("deepspeech2 has no attention decoder")
             conf = dict(self.decoder_configs)
             conf.pop('backend', None)
             ctc_weight = conf.pop('rescore_ctc_weight',
@@ -605,7 +627,13 @@ class PPASRPredictor:
             window_feat = padded
         xs = torch.from_numpy(np.ascontiguousarray(
             window_feat[None], np.float32)).to(self.device)
+        if self.use_model == 'deepspeech2':
+            probs, olens, self._state = self.model.get_encoder_out_chunk(
+                xs, torch.tensor([t], device=self.device), self._state)
+            return probs[0, :int(olens[0])].cpu().numpy()
         valid_out = ((t - self.context) // self.subsampling) + 1
+        factor = self.model.output_factor
+        valid_out = (valid_out + factor - 1) // factor
         if self._rescorer is None:
             probs, self._state = self.model.get_encoder_out_chunk(
                 xs, self._state)

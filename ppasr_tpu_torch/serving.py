@@ -10,8 +10,14 @@ convolution caches never leave the device. Features are made on the host
 through the predictor's ``stream_featurizer``, as the JAX engine makes them.
 
 The engine lock guards both the slot bookkeeping and the batch state; every
-chunk step also runs under ``predict.ieee_float32()``. Only the Conformer
-family is ported: ``stream_axes`` raises for the other states.
+chunk step also runs under ``predict.ieee_float32()``. Every family's state
+is served (:42-56, :66-100): ``stream_axes`` names the stream axis of each
+field of the Conformer's ``StreamingState``, DeepSpeech2's ``DS2State``
+and the per-layer tuples of ``SqueezeformerState`` and ``EffConState``,
+and raises ``TypeError`` for any other state. DeepSpeech2's step takes the
+window length of every slot, the full window's even at a flush (:70-76),
+and has no rescorer; each slot's output frames are divided by the model's
+``output_factor`` (:247-250).
 
 With a predictor built with ``decoder='attention_rescoring'``, each tick
 also keeps every slot's encoder output and posteriors on the device, and a
@@ -29,7 +35,21 @@ import torch
 from ppasr_tpu_torch.data.audio import AudioSegment
 from ppasr_tpu_torch.decoders.greedy import GreedyStreamingDecoder
 from ppasr_tpu_torch.models.conformer_encoder import StreamingState
+from ppasr_tpu_torch.models.deepspeech2 import DS2State
+from ppasr_tpu_torch.models.efficient_conformer import EffConState
+from ppasr_tpu_torch.models.squeezeformer import SqueezeformerState
 from ppasr_tpu_torch.predict import ieee_float32
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the tensors of equally shaped NamedTuples and tuples,
+    rebuilt as the first tree is."""
+    first = trees[0]
+    if isinstance(first, tuple):
+        out = [tree_map(fn, *parts) for parts in zip(*trees)]
+        return type(first)(*out) if hasattr(first, '_fields') \
+            else tuple(out)
+    return fn(*trees)
 
 
 class StreamingBatchEngine:
@@ -47,6 +67,7 @@ class StreamingBatchEngine:
                 max_streams, predictor.cache_size, self.device)
         self._axes = self.stream_axes(self._batch_state)
         self._rescorer = predictor._rescorer
+        self._ds2 = predictor.use_model == 'deepspeech2'
 
         self._lock = threading.Lock()
         self._free = list(range(max_streams))
@@ -60,15 +81,17 @@ class StreamingBatchEngine:
 
     @staticmethod
     def stream_axes(state):
-        """The stream axis of each state field, by field (explicit: guessing
-        by size breaks where another dimension equals the stream count).
-        The port's layout is conformer_encoder.StreamingState's."""
+        """The stream axis of each state field, as a tree of the state's
+        shape (explicit: guessing by size breaks where another dimension
+        equals the stream count)."""
         if isinstance(state, StreamingState):
             return StreamingState(0, 0, 1, 1, 1)
-        raise NotImplementedError(
-            f"streaming state {type(state).__name__} is not ported: the "
-            f"DeepSpeech2, Squeezeformer and EfficientConformer states come "
-            f"with the model zoo (ROADMAP Queue A item 13)")
+        if isinstance(state, DS2State):
+            return DS2State(1, 1)
+        if isinstance(state, (SqueezeformerState, EffConState)):
+            return type(state)(0, 0, *(tuple(0 for _ in field)
+                                       for field in state[2:]))
+        raise TypeError(f"unknown state type: {type(state)}")
 
     def _select(self, mask, new_state, old_state):
         """New state for the slots in ``mask`` ([S] bool on the device),
@@ -77,8 +100,7 @@ class StreamingBatchEngine:
             shape = [1] * n.ndim
             shape[axis] = mask.shape[0]
             return torch.where(mask.reshape(shape), n, o)
-        return StreamingState(*(sel(a, n, o) for a, n, o in zip(
-            self._axes, new_state, old_state)))
+        return tree_map(sel, self._axes, new_state, old_state)
 
     # StreamingState.offset and cache_len are per-stream vectors: each slot's
     # positional window and cache-validity mask advance only on its own
@@ -111,8 +133,8 @@ class StreamingBatchEngine:
 
     def _zero_slot(self, slot: int):
         with torch.inference_mode():
-            for axis, x in zip(self._axes, self._batch_state):
-                x.select(axis, slot).zero_()
+            tree_map(lambda axis, x: x.select(axis, slot).zero_(),
+                     self._axes, self._batch_state)
 
     # ------------------------------------------------------------------ feed
 
@@ -206,7 +228,11 @@ class StreamingBatchEngine:
             mask = torch.from_numpy(valid > 0).to(self.device)
             xs = torch.from_numpy(windows).to(self.device)
             enc = None
-            if self._rescorer is None:
+            if self._ds2:
+                probs, _, new_state = self.model.get_encoder_out_chunk(
+                    xs, torch.full((self.max_streams,), win,
+                                   device=self.device), self._batch_state)
+            elif self._rescorer is None:
                 probs, new_state = self.model.get_encoder_out_chunk(
                     xs, self._batch_state)
             else:
@@ -218,8 +244,10 @@ class StreamingBatchEngine:
             probs_np = probs.cpu().numpy()
             self.ticks += 1
             self.tick_seconds += time.perf_counter() - t0
+            factor = 1 if self._ds2 else self.model.output_factor
             for slot in ready:
                 n_out = ((int(valid[slot]) - ctx) // self.p.subsampling) + 1
+                n_out = max((n_out + factor - 1) // factor, 0)
                 self._decoders[slot].decode_chunk(probs_np[slot][:n_out])
                 if enc is not None and slot in self._rescore_chunks:
                     encs, prbs = self._rescore_chunks[slot]

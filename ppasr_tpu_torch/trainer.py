@@ -1,7 +1,9 @@
 """Training orchestration (counterpart of ppasr_tpu/trainer.py:50-872).
 
 ``PPASRTrainer(configs, use_gpu=True, overwrites=None,
-data_augment_configs=None)``:
+data_augment_configs=None)``, for every family of ``models/factory``
+(DeepSpeech2's loss is CTC alone: its ``loss_att`` and ``th_accuracy``
+read 0 in the step's metrics, as in the JAX train step):
 
 - ``train`` (:356-638): sortagrad batches of ``batch_size · accum_grad``
   utterances, each reshaped to [accum_grad, micro] and skipped when micro

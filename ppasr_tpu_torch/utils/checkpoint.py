@@ -11,8 +11,10 @@ the same file without flax or the ``msgpack`` package:
   ``_ndarray_to_bytes``); ext 3 is a numpy scalar in the same form, ext 2 a
   complex number, and arrays over 2**30 bytes are split into
   ``__msgpack_chunked_array__`` dicts.
-- ``convert_params`` maps the flax parameter tree onto the port's module
-  names and layouts.
+- ``convert_params`` maps the flax parameter tree (and the BatchNorm
+  ``batch_stats`` collection) onto the port's module names and layouts;
+  the flax RNN cells of DeepSpeech2 become ``nn.LSTM``/``nn.GRU``
+  weights.
 
 And the way back, so that the trainer's ``model.msgpack`` is the file both
 packages read (ppasr_tpu/trainer.py:258-261):
@@ -29,6 +31,8 @@ import struct
 import numpy as np
 import torch
 from torch import nn
+
+from ppasr_tpu_torch.models.base import BatchNorm
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 
@@ -160,14 +164,35 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
+# flax lists of submodules (``name_<i>``) that the port keeps as
+# ``nn.ModuleList``s (``name.<i>``)
+_LIST_MODULES = ('layers', 'fwd_rnns', 'bwd_rnns', 'norms')
+
+
 def _torch_name(path) -> str:
     out = []
     for p in path:
-        if p.startswith('layers_') and p[7:].isdigit():
-            out.extend(['layers', p[7:]])        # flax list → nn.ModuleList
+        head, _, idx = p.rpartition('_')
+        if head in _LIST_MODULES and idx.isdigit():
+            out.extend([head, idx])            # flax list → nn.ModuleList
         else:
             out.append(p)
     return '.'.join(out)
+
+
+def _flax_path(torch_name: str) -> list:
+    """The inverse of ``_torch_name`` for a module's dotted name."""
+    parts = torch_name.split('.') if torch_name else []
+    path, i = [], 0
+    while i < len(parts):
+        if parts[i] in _LIST_MODULES and i + 1 < len(parts) \
+                and parts[i + 1].isdigit():
+            path.append(f'{parts[i]}_{parts[i + 1]}')
+            i += 2
+        else:
+            path.append(parts[i])
+            i += 1
+    return path
 
 
 def _convert_leaf(name: str, arr: np.ndarray):
@@ -180,29 +205,106 @@ def _convert_leaf(name: str, arr: np.ndarray):
         if arr.ndim == 4:      # NHWC Conv [kh, kw, in, out] → [out, in, kh, kw]
             return 'weight', arr.transpose(3, 2, 0, 1)
         raise ValueError(f"kernel of rank {arr.ndim}")
-    if name in ('scale', 'embedding'):   # LayerNorm, Embed [V, D]
+    if name in ('scale', 'embedding'):   # LayerNorm/BatchNorm, Embed [V, D]
         return 'weight', arr
-    if name in ('bias', 'pos_bias_u', 'pos_bias_v'):
+    if name in ('bias', 'pos_bias_u', 'pos_bias_v', 'ada_scale', 'ada_bias'):
         return name, arr
     raise ValueError(f"unknown parameter leaf {name!r}")
 
 
+# the gates of flax's OptimizedLSTMCell and GRUCell, in the order nn.LSTM
+# (i, f, g, o) and nn.GRU (r, z, n) stack them
+_LSTM_GATES, _GRU_GATES = 'ifgo', 'rzn'
+
+
+def _rnn_from_cell(cell: dict) -> dict:
+    """A flax ``OptimizedLSTMCell`` (``{ii,if,ig,io}/kernel``,
+    ``{hi,hf,hg,ho}/{kernel,bias}``) or ``GRUCell`` (``{ir,iz,in}/{kernel,
+    bias}``, ``{hr,hz}/kernel``, ``hn/{kernel,bias}``) → the ``_l0``
+    weights of a one-layer ``nn.LSTM`` / ``nn.GRU``. LSTM: no input bias,
+    the hidden biases in ``bias_hh``. GRU: ``bias_ih`` from the input
+    biases, ``bias_hh`` zero for r and z and ``hn.bias`` for n (torch and
+    flax both apply it inside r·(…))."""
+    lstm = 'ii' in cell
+    gates = _LSTM_GATES if lstm else _GRU_GATES
+    w_ih = np.concatenate([np.asarray(cell['i' + g]['kernel']).T
+                           for g in gates])
+    w_hh = np.concatenate([np.asarray(cell['h' + g]['kernel']).T
+                           for g in gates])
+    h = w_hh.shape[1]
+    zeros = np.zeros(h, np.float32)
+    if lstm:
+        b_ih = np.zeros(4 * h, np.float32)
+        b_hh = np.concatenate([np.asarray(cell['h' + g]['bias'])
+                               for g in gates])
+    else:
+        b_ih = np.concatenate([np.asarray(cell['i' + g]['bias'])
+                               for g in gates])
+        b_hh = np.concatenate([zeros, zeros, np.asarray(cell['hn']['bias'])])
+    return {'weight_ih_l0': w_ih, 'weight_hh_l0': w_hh,
+            'bias_ih_l0': b_ih, 'bias_hh_l0': b_hh}
+
+
+def _cell_from_rnn(m: nn.Module) -> dict:
+    """The inverse of ``_rnn_from_cell`` for a trained module: LSTM input
+    and hidden biases fold into the flax hidden biases; GRU r and z biases
+    fold into the flax input biases."""
+    lstm = isinstance(m, nn.LSTM)
+    gates = _LSTM_GATES if lstm else _GRU_GATES
+    get = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
+    n = len(gates)
+    w_ih = np.split(get(m.weight_ih_l0), n)
+    w_hh = np.split(get(m.weight_hh_l0), n)
+    b_ih = np.split(get(m.bias_ih_l0), n)
+    b_hh = np.split(get(m.bias_hh_l0), n)
+    cell = {}
+    for k, g in enumerate(gates):
+        cell['i' + g] = {'kernel': np.ascontiguousarray(w_ih[k].T)}
+        cell['h' + g] = {'kernel': np.ascontiguousarray(w_hh[k].T)}
+        if lstm:
+            cell['h' + g]['bias'] = b_ih[k] + b_hh[k]
+        elif g == 'n':
+            cell['in']['bias'] = b_ih[k].copy()
+            cell['hn']['bias'] = b_hh[k].copy()
+        else:
+            cell['i' + g]['bias'] = b_ih[k] + b_hh[k]
+    return cell
+
+
+def _convert_tree(tree: dict, prefix: tuple, state: dict):
+    for k, v in tree.items():
+        if isinstance(v, dict) and k == 'cell' and ('ii' in v or 'ir' in v):
+            for leaf, arr in _rnn_from_cell(v).items():
+                state[_torch_name(prefix + (leaf,))] = arr
+        elif isinstance(v, dict):
+            _convert_tree(v, prefix + (k,), state)
+        else:
+            leaf, value = _convert_leaf(k, np.asarray(v))
+            state[_torch_name(prefix + (leaf,))] = value
+
+
 def convert_params(flax_tree: dict):
-    """Flax parameter tree (``{'params': {...}}`` or the inner dict) → torch
+    """Flax variables (``{'params': {...}}`` with an optional
+    ``'batch_stats'`` collection, or the inner params dict) → torch
     ``state_dict`` of every leaf.
 
     Maps ``Dense.kernel [in,out]`` → ``Linear.weight [out,in]``, NHWC
     ``Conv.kernel [kh,kw,in,out]`` → ``[out,in,kh,kw]``, the depthwise
-    ``[k,1,C]`` kernel → ``[C,1,k]``, LayerNorm ``scale`` and
-    ``Embed.embedding`` → ``weight``; ``pos_bias_u/v [H,dk]`` and biases
-    unchanged."""
+    ``[k,1,C]`` kernel → ``[C,1,k]``, LayerNorm and BatchNorm ``scale`` and
+    ``Embed.embedding`` → ``weight``; ``pos_bias_u/v [H,dk]``,
+    ``ada_scale``/``ada_bias`` and biases unchanged; each RNN ``cell``
+    → its ``nn.LSTM``/``nn.GRU`` weights (``_rnn_from_cell``); the
+    BatchNorm statistics ``batch_stats/.../{mean,var}`` →
+    ``running_mean``/``running_var``."""
     params = flax_tree.get('params', flax_tree)
     state = {}
-    for path, arr in _flatten(params):
-        leaf, value = _convert_leaf(path[-1], np.asarray(arr))
-        name = _torch_name(path[:-1] + (leaf,))
-        state[name] = torch.from_numpy(np.ascontiguousarray(value).copy())
-    return state
+    _convert_tree(params, (), state)
+    stats = flax_tree.get('batch_stats', {}) if 'params' in flax_tree else {}
+    for path, arr in _flatten(stats):
+        leaf = {'mean': 'running_mean', 'var': 'running_var'}[path[-1]]
+        state[_torch_name(path[:-1] + (leaf,))] = np.asarray(arr)
+    return {k: torch.from_numpy(np.ascontiguousarray(v).copy())
+            for k, v in state.items()}
 
 
 def _pack(value, out: list):
@@ -287,9 +389,9 @@ def save_msgpack(path: str, tree):
 
 def _flax_leaf(module: nn.Module, name: str, arr: np.ndarray):
     """(torch module, parameter name, array) → (flax leaf, array)."""
-    if name in ('bias', 'pos_bias_u', 'pos_bias_v'):
+    if name in ('bias', 'pos_bias_u', 'pos_bias_v', 'ada_scale', 'ada_bias'):
         return name, arr
-    if isinstance(module, nn.LayerNorm):
+    if isinstance(module, (nn.LayerNorm, BatchNorm)):
         return 'scale', arr
     if isinstance(module, nn.Embedding):
         return 'embedding', arr
@@ -302,35 +404,43 @@ def _flax_leaf(module: nn.Module, name: str, arr: np.ndarray):
     raise ValueError(f"no flax leaf for {type(module).__name__}.{name}")
 
 
+def _put(tree: dict, path: list, value):
+    node = tree
+    for k in path[:-1]:
+        node = node.setdefault(k, {})
+    node[path[-1]] = value
+
+
 def export_params(module: nn.Module) -> dict:
-    """The module's parameters as the flax tree ``{'params': {...}}`` of
-    float32 numpy arrays (copies: later updates of the module leave them
-    be), the inverse of ``convert_params``: ``layers.<i>``
-    → ``layers_<i>``, ``Linear.weight [out,in]`` → ``kernel [in,out]``,
-    conv weights back to NHWC and ``[k,1,C]``, LayerNorm ``weight`` →
-    ``scale``, ``Embedding.weight`` → ``embedding``."""
+    """The module's parameters as the flax variables ``{'params': {...}}``
+    of float32 numpy arrays, with a ``'batch_stats'`` collection when it
+    has BatchNorms (copies: later updates of the module leave them be), the
+    inverse of ``convert_params``: ``layers.<i>`` → ``layers_<i>``,
+    ``Linear.weight [out,in]`` → ``kernel [in,out]``, conv weights back to
+    NHWC and ``[k,1,C]``, LayerNorm and BatchNorm ``weight`` → ``scale``,
+    ``Embedding.weight`` → ``embedding``, each ``nn.LSTM``/``nn.GRU`` → its
+    flax ``cell`` (``_cell_from_rnn``), the BatchNorm running statistics →
+    ``mean``/``var``."""
     modules = dict(module.named_modules())
-    tree = {}
+    tree, stats = {}, {}
+    for name, m in modules.items():
+        if isinstance(m, (nn.LSTM, nn.GRU)):
+            _put(tree, _flax_path(name) + ['cell'], _cell_from_rnn(m))
+        elif isinstance(m, BatchNorm):
+            path = _flax_path(name)
+            _put(stats, path + ['mean'], m.running_mean.detach().float()
+                 .cpu().numpy().copy())
+            _put(stats, path + ['var'], m.running_var.detach().float()
+                 .cpu().numpy().copy())
     for name, p in module.named_parameters():
         mod_name, _, leaf = name.rpartition('.')
+        if isinstance(modules[mod_name], (nn.LSTM, nn.GRU)):
+            continue
         key, arr = _flax_leaf(modules[mod_name], leaf,
                               p.detach().float().cpu().numpy().copy())
-        path = []
-        parts = mod_name.split('.') if mod_name else []
-        i = 0
-        while i < len(parts):
-            if parts[i] == 'layers' and i + 1 < len(parts) \
-                    and parts[i + 1].isdigit():
-                path.append(f'layers_{parts[i + 1]}')
-                i += 2
-            else:
-                path.append(parts[i])
-                i += 1
-        node = tree
-        for k in path:
-            node = node.setdefault(k, {})
-        node[key] = np.ascontiguousarray(arr)
-    return {'params': tree}
+        _put(tree, _flax_path(mod_name) + [key], np.ascontiguousarray(arr))
+    return {'params': tree, 'batch_stats': stats} if stats \
+        else {'params': tree}
 
 
 def write_inference_artifact(out_dir: str, config: dict, model_msgpack: str,

@@ -84,14 +84,43 @@ def test_undecodable_file_without_ffmpeg_raises_as_jax(tmp_path,
 
 @pytest.mark.parametrize('dbnorm', [True, False])
 def test_audio_featurizer_matches_jax(dbnorm):
+    """fbank, mfcc and linear features equal the JAX featurizer's, as do
+    their feature dimensions; an unknown method raises."""
     pcm = _pcm(9000, seed=1)
-    mine = AudioFeaturizer(n_mels=80, use_dB_normalization=dbnorm)
-    ref = JaxFeaturizer(n_mels=80, use_dB_normalization=dbnorm)
+    for method in ('fbank', 'mfcc', 'linear'):
+        mine = AudioFeaturizer(feature_method=method, n_mels=80,
+                               use_dB_normalization=dbnorm)
+        ref = JaxFeaturizer(feature_method=method, n_mels=80,
+                            use_dB_normalization=dbnorm)
+        got = mine.featurize(AudioSegment(pcm, 16000))
+        np.testing.assert_array_equal(
+            got, ref.featurize(JaxSegment(pcm, 16000)))
+        assert got.shape[1] == mine.feature_dim == ref.feature_dim
+    with pytest.raises(ValueError, match='unsupported feature method'):
+        AudioFeaturizer(feature_method='spectrogram')
+
+
+@pytest.mark.parametrize('n_mels,n_ceps,lifter', [(80, 40, 22.0),
+                                                  (40, 13, 0.0)])
+def test_mfcc_and_linear_numpy_match_jax(n_mels, n_ceps, lifter):
+    """ops/fbank's mfcc_numpy, dct_matrix, lifter_coeffs and linear_numpy
+    against ppasr_tpu/ops/fbank.py's, bit for bit."""
+    from ppasr_tpu.ops import fbank as jax_fbank
+    from ppasr_tpu_torch.ops import fbank as port_fbank
+    wav = _pcm(7000, seed=2).astype(np.float32) * 32767.0
+    np.testing.assert_array_equal(port_fbank.dct_matrix(n_ceps, n_mels),
+                                  jax_fbank.dct_matrix(n_ceps, n_mels))
+    np.testing.assert_array_equal(port_fbank.lifter_coeffs(n_ceps, 22.0),
+                                  jax_fbank.lifter_coeffs(n_ceps, 22.0))
     np.testing.assert_array_equal(
-        mine.featurize(AudioSegment(pcm, 16000)),
-        ref.featurize(JaxSegment(pcm, 16000)))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        AudioFeaturizer(feature_method='mfcc')
+        port_fbank.mfcc_numpy(wav, num_mel_bins=n_mels, num_ceps=n_ceps,
+                              cepstral_lifter=lifter),
+        jax_fbank.mfcc_numpy(wav, num_mel_bins=n_mels, num_ceps=n_ceps,
+                             cepstral_lifter=lifter))
+    for n in (7000, 200):       # 200 samples: no whole 20 ms frame
+        x = _pcm(n, seed=3)
+        np.testing.assert_array_equal(port_fbank.linear_numpy(x, 16000),
+                                      jax_fbank.linear_numpy(x, 16000))
 
 
 def test_text_featurizer_and_greedy_match_jax():

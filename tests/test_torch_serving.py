@@ -96,7 +96,19 @@ def test_slots_capacity_and_closed_slot(predictors):
 
 
 def test_stream_axes_name_the_layout():
-    state = StreamingState(*(torch.zeros(1) for _ in range(5)))
+    """Each family's state names its stream axes (the JAX engine's, field
+    by field); any other state raises TypeError, as in JAX."""
+    from ppasr_tpu_torch.models.deepspeech2 import DS2State
+    from ppasr_tpu_torch.models.efficient_conformer import EffConState
+    from ppasr_tpu_torch.models.squeezeformer import SqueezeformerState
+    z = torch.zeros(1)
+    state = StreamingState(*(z for _ in range(5)))
     assert StreamingBatchEngine.stream_axes(state) == (0, 0, 1, 1, 1)
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue A item 13'):
+    assert StreamingBatchEngine.stream_axes(DS2State(z, z)) == (1, 1)
+    for cls in (SqueezeformerState, EffConState):
+        axes = StreamingBatchEngine.stream_axes(
+            cls(z, z, (z, z, z), (z, z, z), (z, z, z)))
+        assert type(axes) is cls
+        assert axes == (0, 0, (0, 0, 0), (0, 0, 0), (0, 0, 0))
+    with pytest.raises(TypeError, match='unknown state type'):
         StreamingBatchEngine.stream_axes((torch.zeros(1), torch.zeros(1)))

@@ -44,17 +44,7 @@ def speechlike(n_samples, seed):
 def write_artifact(out):
     """Write the tiny artifact into the directory ``out`` (a Path); returns
     it as a str."""
-    with open(out / 'vocabulary.txt', 'w', encoding='utf-8') as f:
-        f.write(''.join(f'{tok}\t1\n' for tok in VOCAB))
-    feats = []
-    for seed in (11, 12, 13):
-        seg = JaxSegment(speechlike(32000, seed), 16000)
-        seg.normalize(-20)
-        feats.append(fbank_numpy(seg.to('int16').astype(np.float32)))
-    feats = np.concatenate(feats)
-    with open(out / 'mean_istd.json', 'w', encoding='utf-8') as f:
-        json.dump({'mean': feats.mean(0).tolist(),
-                   'istd': (1.0 / feats.std(0)).tolist()}, f)
+    write_vocab_and_cmvn(out)
     model = JaxConformer(input_size=D, vocab_size=len(VOCAB), streaming=True,
                          encoder_conf=ENC, decoder_conf=DEC)
     key = jax.random.PRNGKey(3)
@@ -71,6 +61,22 @@ def write_artifact(out):
                    'encoder_conf': ENC, 'decoder_conf': DEC,
                    'model_conf': {'ctc_weight': 0.3}}, f, indent=2)
     return str(out)
+
+
+def write_vocab_and_cmvn(out):
+    """The artifacts' ``vocabulary.txt`` and ``mean_istd.json`` (the CMVN
+    of synthetic speech's features) in the directory ``out``."""
+    with open(out / 'vocabulary.txt', 'w', encoding='utf-8') as f:
+        f.write(''.join(f'{tok}\t1\n' for tok in VOCAB))
+    feats = []
+    for seed in (11, 12, 13):
+        seg = JaxSegment(speechlike(32000, seed), 16000)
+        seg.normalize(-20)
+        feats.append(fbank_numpy(seg.to('int16').astype(np.float32)))
+    feats = np.concatenate(feats)
+    with open(out / 'mean_istd.json', 'w', encoding='utf-8') as f:
+        json.dump({'mean': feats.mean(0).tolist(),
+                   'istd': (1.0 / feats.std(0)).tolist()}, f)
 
 
 def random_arpa(path, vocab, order, seed, n_per_order=120, absent=0):
@@ -102,3 +108,48 @@ def random_arpa(path, vocab, order, seed, n_per_order=120, absent=0):
     with open(path, 'w', encoding='utf-8') as f:
         f.write("\n".join(lines) + "\n")
     return str(path)
+
+
+# the model zoo at tiny widths, weights from make_torch_zoo_fixture's
+# fill_weights: (encoder_conf, decoder_conf, model_conf) per family, and
+# the weight gain of each (DeepSpeech2's LSTM at unit gain emits one token
+# for every frame of these inputs; ×2 makes its argmax move)
+ZOO_GAIN = {'deepspeech2': 2.0}
+ZOO = {
+    'deepspeech2': (dict(num_rnn_layers=2, rnn_size=64, use_gru=False),
+                    {}, {}),
+    'squeezeformer': (dict(encoder_dim=64, output_size=64, attention_heads=2,
+                           num_blocks=4, reduce_idx=1, recover_idx=3,
+                           feed_forward_expansion_factor=2,
+                           cnn_module_kernel=7),
+                      DEC, {'ctc_weight': 0.3}),
+    'efficient_conformer': (dict(output_size=64, attention_heads=2,
+                                 linear_units=128, num_blocks=3,
+                                 cnn_module_kernel=15, block_final_norm=False,
+                                 efficient_conf=dict(
+                                     stride_layer_idx=[1], stride=[2],
+                                     group_layer_idx=[0, 1], group_size=3)),
+                            DEC, {'ctc_weight': 0.3}),
+}
+
+
+def write_zoo_artifact(out, use_model, seed=5):
+    """``write_artifact`` for a tiny ``use_model`` of ``ZOO``: the port
+    builds it, ``fill_weights`` draws its parameters and ``export_params``
+    writes them (``utils/checkpoint.save_msgpack``) for both packages."""
+    from make_torch_zoo_fixture import fill_weights
+    from ppasr_tpu_torch.models.factory import build_model
+    from ppasr_tpu_torch.utils.checkpoint import export_params, save_msgpack
+    write_vocab_and_cmvn(out)
+    enc, dec, model_conf = ZOO[use_model]
+    model = build_model(use_model, D, len(VOCAB), streaming=True,
+                        encoder_conf=enc, decoder_conf=dec,
+                        model_conf=model_conf)
+    fill_weights(model, seed, ZOO_GAIN.get(use_model, 1.0))
+    save_msgpack(str(out / 'model.msgpack'), export_params(model))
+    with open(out / 'inference.json', 'w', encoding='utf-8') as f:
+        json.dump({'use_model': use_model, 'streaming': True,
+                   'input_dim': D, 'vocab_size': len(VOCAB),
+                   'encoder_conf': enc, 'decoder_conf': dec,
+                   'model_conf': model_conf}, f, indent=2)
+    return str(out)
