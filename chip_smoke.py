@@ -105,8 +105,31 @@ is not 0:
    equal and scores within ``zf.RESCORE_TOL``; one float32 train step
    (dropout off, B1 without dither, the training fixture's 8 utterances),
    loss terms and gradient norm within ``zf.TRAIN_RTOL`` of JAX's; wall
-   per call and per window;
-14. timing, after the paths, whose real-time factors are thus read
+   per call and per window; and DeepSpeech2 again from its initial weights
+   with ``enable_amp`` (its LSTMs in bf16 over float32 weights), one step
+   on B1 with the dither, against tests/fixtures/torch_recipe.npz's JAX
+   bf16 step within ``tf.BF16_LOSS_RTOL`` / ``tf.BF16_GRAD_NORM_RTOL``;
+14. recipe (tests/fixtures/torch_recipe.npz and its tolerances in
+   tests/make_torch_recipe_fixture.py), through the CLIs' ``main`` in a
+   workspace under build/: the eleven committed utterances (the training
+   fixture's 8 as ``train.txt``, the smoke fixture's 3 as ``test.txt``)
+   through ``python -m ppasr_tpu_torch.create_data`` with
+   configs/conformer.yml (manifests and vocabulary equal JAX's, CMVN
+   within 1e-5) and ``extract_features`` for the test split; ``train``
+   with the stock configs/conformer.yml at full width (256-dim, 12
+   blocks), configs/augmentation.json's host stages, one epoch of batches
+   of 4, its evaluate on the stock ``ctc_beam_search`` (beam 300, LM-free:
+   the config's .klm is absent): finite losses, a ``best_model``, wall per
+   step and the evaluate's audio-s/s; ``eval`` of the committed flagship
+   over the eleven, greedy, beam (flagship conf, lm/synth_lm.arpa),
+   attention rescoring, and ``streaming_eval`` greedy and beam: texts equal
+   JAX's, scores within ``BEAM_SCORE_TOL``; ``export_model`` of the trained
+   checkpoint, served by ``PPASRPredictor``: host-frontend
+   ``predict_batch`` texts equal the trained model's greedy ``evaluate``,
+   device-frontend ``predict_batch`` (one B1 launch) and ``predict_stream``
+   (one per window), CTC log-probs of B1's features within 1e-3 of the
+   host features';
+15. timing, after the paths, whose real-time factors are thus read
    before the process first runs the profiler: at each shape of phase 3,
    three rounds time in turn the kernel, the plain version,
    ``torch.fft.rfft`` alone on the same frames, and the kernel again, each
@@ -114,9 +137,9 @@ is not 0:
    included) and the kernel and ``rfft`` also on the device alone
    (``device_ms``, from ``torch.profiler`` recording CUDA activity only);
    and the bound. The kernel table's ``ms`` is ``call_ms`` at the window,
-   its ``launches`` the launches of phases 4, 5, 8–11 and 13 (one per
-   streamed window, one per batch) and 12 and 13 (one per micro-batch of
-   the training path), and its ``max_abs_err`` the largest of phases 3
+   its ``launches`` the launches of phases 4, 5, 8–11, 13 and 14 (one
+   per streamed window, one per batch) and 12 and 13 (one per micro-batch
+   of the training path), and its ``max_abs_err`` the largest of phases 3
    and 5.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
@@ -138,6 +161,12 @@ import torch
 
 import ppasr_tpu_torch.decoders.greedy as greedy_module
 import ppasr_tpu_torch.predict as predict_module
+import ppasr_tpu_torch.trainer as trainer_module
+from ppasr_tpu_torch import create_data as create_data_cli
+from ppasr_tpu_torch import eval as eval_cli
+from ppasr_tpu_torch import export_model as export_cli
+from ppasr_tpu_torch import extract_features as extract_features_cli
+from ppasr_tpu_torch import train as train_cli
 from ppasr_tpu_torch.config import load_config
 from ppasr_tpu_torch.data.audio import AudioSegment
 from ppasr_tpu_torch.data.dataset import collate_raw_fn
@@ -159,6 +188,7 @@ from ppasr_tpu_torch.utils.metrics import cer, edit_distance
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, 'tests'))
+import make_torch_recipe_fixture as rf  # noqa: E402  (no JAX at import)
 import make_torch_smoke_fixture as fx  # noqa: E402  (no JAX at import)
 import make_torch_train_fixture as tf  # noqa: E402  (no JAX at import)
 import make_torch_zoo_fixture as zf  # noqa: E402  (no JAX at import)
@@ -408,7 +438,7 @@ def check_kernel(dev):
 
 
 def time_kernel(shapes):
-    """Phase 12: the timings of every shape of phase 3, beside its bound;
+    """Phase 15: the timings of every shape of phase 3, beside its bound;
     returns the table entry."""
     rows = []
     for case in shapes:
@@ -1136,7 +1166,8 @@ def train_loop(card, dev):
         t0 = time.time()
         trainer = PPASRTrainer(tf.CONFIG, use_gpu=True, overwrites=overwrites,
                                data_augment_configs=AUGMENTATION)
-        state = trainer.train(save_model_path=os.path.join(work, 'models'))
+        state = trainer.train(save_model_path=os.path.join(work, 'models'),
+                              log_dir=os.path.join(work, 'log'))
         torch.cuda.synchronize()
         wall = time.time() - t0
         losses = [float(v) for v in trainer.step_losses]
@@ -1434,6 +1465,7 @@ def zoo_family(card, dev, use_model, data, utts):
 
     model, conf = zf.zoo_model(use_model)
     model.to(dev)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
     state = create_train_state(model, dict(conf.optimizer_conf),
                                float(conf.train_conf.grad_clip))
     step = make_train_step(1, make_device_frontend({'n_mels': 80}),
@@ -1450,8 +1482,41 @@ def zoo_family(card, dev, use_model, data, utts):
     for k in names:
         check_close(f"{use_model} step-0 {k}", metrics[k].item(),
                     float(data[f'{use_model}_{k}']), zf.TRAIN_RTOL)
+    if use_model == 'deepspeech2':
+        launches += ds2_bf16_step(model, conf, initial, batch)
     del model, state
     torch.cuda.empty_cache()
+    return launches
+
+
+def ds2_bf16_step(model, conf, initial, batch):
+    """Zoo phase, DeepSpeech2 with ``enable_amp``: the initial weights
+    again, the LSTMs computing in bf16 over float32 parameters (cast at
+    use), one step on B1 with the dither; loss terms and gradient norm
+    against the JAX bf16 step of tests/fixtures/torch_recipe.npz (taken
+    without dither) within tf.BF16_LOSS_RTOL / tf.BF16_GRAD_NORM_RTOL.
+    Returns its fbank launches."""
+    model.load_state_dict(initial)
+    model.set_compute_dtype(torch.bfloat16, at_use=True)
+    state = create_train_state(model, dict(conf.optimizer_conf),
+                               float(conf.train_conf.grad_clip))
+    step = make_train_step(1, make_device_frontend({'n_mels': 80}))
+    before = fbank_cuda.launches
+    metrics, wall = timed(lambda: step(state, batch, 0))
+    launches = fbank_cuda.launches - before
+    data = np.load(rf.OUT)
+    rnn = model.encoder.fwd_rnns[0]
+    print(f"  bf16 train step (enable_amp: {rnn.compute_dtype} cells over "
+          f"{rnn.weight_ih_l0.dtype} weights, B1 with dither): "
+          f"{wall * 1e3:.1f} ms", flush=True)
+    for k, rtol in (('loss', tf.BF16_LOSS_RTOL),
+                    ('loss_ctc', tf.BF16_LOSS_RTOL),
+                    ('grad_norm', tf.BF16_GRAD_NORM_RTOL)):
+        check_close(f"deepspeech2 bf16 step-0 {k}", metrics[k].item(),
+                    float(data[f'ds2_bf16_{k}']), rtol)
+    if launches != 1 or rnn.compute_dtype != torch.bfloat16:
+        raise AssertionError(f"the DS2 bf16 step launched B1 {launches} "
+                             f"times in {rnn.compute_dtype}")
     return launches
 
 
@@ -1466,6 +1531,233 @@ def zoo_path(card, dev):
         launches += zoo_family(card, dev, use_model, data, utts)
         print(f"  {use_model}: {time.time() - t0:.2f} s", flush=True)
     print(f"  fbank launches on the zoo paths: {launches}", flush=True)
+    return launches
+
+
+def recipe_data(card, work, data):
+    """Recipe phase, step 1: the eleven utterances as an annotation
+    directory, ``python -m ppasr_tpu_torch.create_data`` with
+    configs/conformer.yml pointed at the workspace, held to the fixture's
+    JAX manifests, vocabulary and CMVN; then ``extract_features`` for the
+    test split. Returns the overwrites that point the config at ``work``."""
+    annotation = rf.write_corpus(work)
+    overwrites = rf.workspace_overwrites(work)
+    _, create_s = timed(lambda: create_data_cli.main([
+        '--configs', rf.STOCK_CONFIG, '--annotation_path', annotation,
+        '--noise_dir', '', '--overwrites', overwrites]))
+    for split in ('train', 'test'):
+        got = rf.masked_lines(os.path.join(work, f'manifest.{split}'), work)
+        if got != [str(v) for v in data[f'manifest_{split}']]:
+            raise AssertionError(f"manifest.{split} differs from JAX's: "
+                                 f"{got}")
+    with open(os.path.join(work, 'vocabulary.txt'), encoding='utf-8') as f:
+        vocab = f.read()
+    if vocab != str(data['vocabulary']):
+        raise AssertionError(f"the vocabulary differs from JAX's: {vocab!r}")
+    cmvn = rf.read_cmvn(os.path.join(work, 'mean_istd.json'))
+    err = max(float(np.max(np.abs(g - data[k]) / np.abs(data[k])))
+              for g, k in zip(cmvn, ('mean', 'istd')))
+    _, extract_s = timed(lambda: extract_features_cli.main([
+        '--configs', rf.STOCK_CONFIG, '--save_dir',
+        os.path.join(work, 'features'), '--splits', 'test',
+        '--overwrites', overwrites]))
+    print(f"  create_data: manifests of 8 + 3 utterances and the "
+          f"vocabulary equal JAX's, CMVN within {err:.3g} relative "
+          f"(tolerance {rf.CMVN_RTOL:g}); host seconds: create_data "
+          f"{create_s:.2f}, extract_features (test) {extract_s:.2f}",
+          flush=True)
+    if err > rf.CMVN_RTOL or not os.path.exists(
+            os.path.join(work, 'manifest_features.test')):
+        raise AssertionError("mean_istd.json or the test features are off")
+    return overwrites
+
+
+def recipe_train(card, work, overwrites):
+    """Recipe phase, step 2: ``python -m ppasr_tpu_torch.train`` with the
+    stock configs/conformer.yml at its full width (plus ``profile_steps:
+    [0, 1]``, which the overwrites cannot set), configs/augmentation.json
+    (host SpecAugment and SpecSub), one epoch of batches of 4 (accum_grad 1:
+    the stock 4 would need 16 utterances a step); its per-epoch evaluate
+    runs the config's ctc_beam_search (beam 300, the absent .klm decoded
+    LM-free); the profiler's trace must hold CUDA kernels. Returns the best
+    checkpoint's directory."""
+    config = os.path.join(work, 'conformer.yml')
+    with open(rf.STOCK_CONFIG, encoding='utf-8') as f:
+        text = f.read()
+    with open(config, 'w', encoding='utf-8') as f:
+        f.write(text.replace('\ntrain_conf:\n',
+                             '\ntrain_conf:\n  profile_steps: [0, 1]\n'))
+    evals, steps = [], []
+    evaluate = PPASRTrainer.evaluate
+    make_step = trainer_module.make_train_step
+
+    def timed_evaluate(self, *args, **kw):
+        out, wall = timed(lambda: evaluate(self, *args, **kw))
+        evals.append((self, wall, len(self.eval_results)))
+        return out
+
+    def timed_make_step(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def run(*a):
+            out, wall = timed(lambda: step(*a))
+            steps.append(wall)
+            return out
+        return run
+
+    PPASRTrainer.evaluate = timed_evaluate
+    trainer_module.make_train_step = timed_make_step
+    try:
+        state, wall = timed(lambda: train_cli.main([
+            '--configs', config, '--save_model_path',
+            os.path.join(work, 'models'), '--log_dir',
+            os.path.join(work, 'log'), '--augment_conf_path', AUGMENTATION,
+            '--overwrites', overwrites + ',dataset_conf.batch_size=4,'
+            'train_conf.accum_grad=1,train_conf.max_epoch=1']))
+    finally:
+        PPASRTrainer.evaluate = evaluate
+        trainer_module.make_train_step = make_step
+    trainer = evals[0][0]
+    losses = [float(v) for v in trainer.step_losses]
+    test_wall = evals[0][1]
+    test_audio = sum(len(p) for p, _, split in rf.utterances()
+                     if split == 'test') / 16000.0
+    decoder = type(trainer._eval_decoder).__name__
+    n_params = sum(p.numel() for p in state.model.parameters())
+    enc = trainer.configs.encoder_conf
+    print(f"  train CLI on {card}: {n_params / 1e6:.2f} M parameters "
+          f"({enc.output_size}-dim, {enc.num_blocks} blocks), "
+          f"{len(losses)} updates, losses {[round(v, 4) for v in losses]}; "
+          f"wall per step {[round(w, 3) for w in steps]} s (batches of 4, "
+          f"host features with SpecAugment and SpecSub), the CLI "
+          f"{wall:.2f} s; evaluate with {decoder} "
+          f"(beam {trainer._eval_decoder.beam_size}) on the test split: "
+          f"{test_wall:.3f} s, {test_audio / test_wall:.1f} audio-s/s",
+          flush=True)
+    if len(losses) != 2 or not np.isfinite(losses).all() or \
+            decoder != 'TorchBeamSearchDecoder' or evals[0][2] != 3:
+        raise AssertionError(f"recipe training: losses {losses}, decoder "
+                             f"{decoder}")
+    best = os.path.join(work, 'models', trainer.model_dir_name, 'best_model')
+    if not os.path.exists(os.path.join(best, 'model.msgpack')):
+        raise AssertionError(f"the train CLI wrote no {best}")
+    with open(os.path.join(work, 'log', 'profile', 'trace.json'),
+              encoding='utf-8') as f:
+        events = json.load(f)['traceEvents']
+    kernels = sum(1 for e in events if e.get('cat') == 'kernel')
+    scalars = [n for n in os.listdir(os.path.join(work, 'log'))
+               if n.startswith('events.out.tfevents')]
+    print(f"  profile_steps [0, 1]: {len(events)} trace events, {kernels} "
+          f"CUDA kernels; tensorboard scalars "
+          f"{'written' if scalars else 'not written (no writer imports)'}",
+          flush=True)
+    if kernels == 0:
+        raise AssertionError("the profile_steps trace holds no CUDA kernel")
+    return best
+
+
+def recipe_eval(card, work, data):
+    """Recipe phase, step 3: ``python -m ppasr_tpu_torch.eval`` on the
+    committed flagship over all eleven utterances, once per run of
+    ``rf.EVAL_RUNS``; texts equal the fixture's JAX texts, beam and
+    rescoring scores within BEAM_SCORE_TOL, the loss within rf.LOSS_RTOL."""
+    manifest = rf.write_eval_manifest(work)
+    for run, (decoder, streaming) in rf.EVAL_RUNS.items():
+        (trainer, err, loss), wall = timed(lambda: eval_cli.main([
+            '--configs', rf.FLAGSHIP_CONFIG, '--resume_model', rf.FLAGSHIP,
+            '--streaming_eval', str(streaming), '--overwrites',
+            rf.eval_overwrites(manifest) + f',decoder={decoder}']))
+        texts = [r['text'] for r in trainer.eval_results]
+        scores = np.array([r['score'] for r in trainer.eval_results])
+        d = float(np.max(np.abs(scores - data[f'eval_{run}_scores']))) \
+            if decoder != 'ctc_greedy' else 0.0
+        want_loss = float(data[f'eval_{run}_loss'])
+        print(f"  eval {run}: cer {err:.5f} (JAX "
+              f"{float(data[f'eval_{run}_error']):.5f}), loss {loss:.5f} "
+              f"(JAX {want_loss:.5f}), max |Δscore| {d:.3g}, wall "
+              f"{wall:.2f} s (model load included)", flush=True)
+        expect(f'eval {run}', texts, data, f'eval_{run}')
+        if d > fx.BEAM_SCORE_TOL or \
+                abs(loss - want_loss) > rf.LOSS_RTOL * abs(want_loss):
+            raise AssertionError(f"eval {run}: scores or loss differ")
+
+
+def recipe_export(card, work, overwrites, best):
+    """Recipe phase, step 4: ``python -m ppasr_tpu_torch.export_model``
+    of step 2's checkpoint, served by ``PPASRPredictor``: on the host
+    frontend ``predict_batch`` gives the trained model's greedy
+    ``evaluate`` texts on the test split; on the device frontend
+    ``predict_batch`` (one B1 launch) and ``predict_stream`` (one per
+    window) run, and the CTC log-probs of B1's features are within 1e-3
+    of the host features'. Returns B1's launches."""
+    infer = export_cli.main(['--configs', rf.STOCK_CONFIG, '--save_model_path',
+                             os.path.join(work, 'models'), '--resume_model',
+                             best, '--overwrites', overwrites])
+    trainer, _, _ = eval_cli.main([
+        '--configs', rf.STOCK_CONFIG, '--resume_model', best,
+        '--overwrites', overwrites + ',decoder=ctc_greedy'])
+    want = [r['text'] for r in trainer.eval_results]
+    with open(os.path.join(work, 'manifest.test'), encoding='utf-8') as f:
+        wavs = [json.loads(line)['audio_filepath'] for line in f]
+    host = PPASRPredictor(model_path=infer, use_gpu=True)
+    got = [r['text'] for r in host.predict_batch(wavs)]
+    if got != want:
+        raise AssertionError(f"exported model's host-frontend texts {got} "
+                             f"!= the trained model's evaluate {want}")
+    pred = PPASRPredictor(model_path=infer, use_gpu=True,
+                          use_device_frontend=True)
+    pcms = [AudioSegment.from_file(w).to('int16') for w in wavs]
+    before = fbank_cuda.launches
+    batch, batch_s = timed(lambda: pred.predict_batch(wavs))
+    stream, stream_s = timed(lambda: fx.stream_text(pred, pcms[0]))
+    launches = fbank_cuda.launches - before
+    windows = stream_windows(pred, pcms[:1])
+    x, lens = fx.host_features(host, pcms)
+    wav, wlens = pred._waveform_batch(wavs)
+    with torch.inference_mode(), ieee_float32():
+        want_lp, want_n = host.model.get_ctc_log_probs(
+            torch.from_numpy(x).to(host.device),
+            torch.from_numpy(lens).to(host.device))
+        feat, flens = fbank_cuda.fbank_batch(
+            torch.from_numpy(wav).to(pred.device),
+            torch.from_numpy(wlens).to(pred.device))
+        got_lp, got_n = pred.model.get_ctc_log_probs(feat, flens)
+    err = max(float((got_lp[i, :int(n)] - want_lp[i, :int(n)]).abs().max())
+              for i, n in enumerate(want_n.tolist()))
+    print(f"  exported {infer}: host-frontend predict_batch {got} equals "
+          f"evaluate; device frontend predict_batch "
+          f"{[r['text'] for r in batch]} in {batch_s * 1e3:.1f} ms, predict_stream {stream!r} in "
+          f"{stream_s * 1e3:.1f} ms over {windows} windows; CTC log-probs "
+          f"of B1's features max |Δ| {err:.3g} against the host features' "
+          f"(tolerance 1e-3); fbank launches {launches}", flush=True)
+    if err > 1e-3 or not torch.equal(got_n[:len(wavs)].cpu(), want_n.cpu()) \
+            or launches != windows + 1:
+        raise AssertionError("the exported model's device frontend is off")
+    return launches
+
+
+def recipe_path(card, dev):
+    """Phase 14: the stock recipe through the CLIs on the card
+    (``recipe_data``, ``recipe_train``, ``recipe_eval``,
+    ``recipe_export``) in a workspace under build/. Returns B1's
+    launches."""
+    data = np.load(rf.OUT)
+    work = tempfile.mkdtemp(prefix='recipe_', dir=BUILD)
+    try:
+        t0 = time.time()
+        overwrites = recipe_data(card, work, data)
+        print(f"  data: {time.time() - t0:.2f} s", flush=True)
+        t0 = time.time()
+        best = recipe_train(card, work, overwrites)
+        print(f"  train: {time.time() - t0:.2f} s", flush=True)
+        t0 = time.time()
+        recipe_eval(card, work, data)
+        print(f"  eval: {time.time() - t0:.2f} s", flush=True)
+        t0 = time.time()
+        launches = recipe_export(card, work, overwrites, best)
+        print(f"  export and serve: {time.time() - t0:.2f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return launches
 
 
@@ -1543,6 +1835,10 @@ def main():
     t0 = time.time()
     launches += zoo_path(card, dev)
     phase('zoo', t0)
+
+    t0 = time.time()
+    launches += recipe_path(card, dev)
+    phase('recipe', t0)
 
     t0 = time.time()
     entry = time_kernel(shapes)

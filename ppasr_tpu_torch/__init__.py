@@ -18,8 +18,10 @@ multi-stream engine (``serving``), the batched streaming eval
 (``trainer.PPASRTrainer``, ``python -m ppasr_tpu_torch.train``): the CTC and
 label-smoothed attention losses, the device frontend (B1 with the training
 dither, SpecAugment, SpecSub), AdamW with its schedules, gradient
-accumulation and bf16 over float32 parameters. See ROADMAP.md for what is
-still to come.
+accumulation and bf16 over float32 parameters, for all four model
+families; and the rest of the recipe: ``python -m ppasr_tpu_torch.
+create_data``, ``extract_features``, ``eval`` (every decoder), ``tune`` and
+``export_model``. See ROADMAP.md for what is still to come.
 """
 
 __version__ = "0.1.0"

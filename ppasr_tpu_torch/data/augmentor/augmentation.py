@@ -1,18 +1,19 @@
-"""Augmentation pipeline: the parsed augmentation.json → ordered audio
-stages, each applied with its ``prob`` (counterpart of
-ppasr_tpu/data/augmentor/augmentation.py:31-62).
-
-The feature stages ('specaug', 'specsub') run on the device in the
-training frontend (``ops/frontend.make_device_frontend``), which reads
-them from the same list; the pipeline keeps them only to refuse
-``transform_feature``: the host SpecAugment of training without the device
-frontend (``feature_augmentors.py``) is not ported yet (ROADMAP Queue A,
-item 12)."""
+"""Augmentation pipeline: the parsed augmentation.json → ordered audio and
+feature stages, each applied with its ``prob`` (counterpart of
+ppasr_tpu/data/augmentor/augmentation.py:31-62, with the same draws from
+Python's ``random``). The feature stages ('specaug', 'specsub';
+``feature_augmentors.py``) run on host features in ``transform_feature``;
+training with the device frontend runs them on the card instead
+(``ops/frontend.make_device_frontend`` reads them from the same list). A
+stage whose constructor raises is skipped with a warning, as in the JAX
+package."""
 import random
 
 from ppasr_tpu_torch.data.augmentor.audio_augmentors import (
     NoisePerturbAugmentor, ResampleAugmentor, ShiftPerturbAugmentor,
     SpeedPerturbAugmentor, VolumePerturbAugmentor)
+from ppasr_tpu_torch.data.augmentor.feature_augmentors import (
+    SpecAugmentor, SpecSubAugmentor)
 from ppasr_tpu_torch.utils.logger import setup_logger
 
 logger = setup_logger(__name__)
@@ -24,31 +25,33 @@ _AUDIO_TYPES = {
     'shift': ShiftPerturbAugmentor,
     'volume': VolumePerturbAugmentor,
 }
-_FEATURE_TYPES = ('specaug', 'specsub')
+_FEATURE_TYPES = {
+    'specaug': SpecAugmentor,
+    'specsub': SpecSubAugmentor,
+}
 
 
 class AugmentationPipeline:
     def __init__(self, config: list):
-        """``config``: [{type, aug_type, params, prob}, ...]. An audio stage
-        whose constructor raises is skipped with a warning, as in the JAX
-        package."""
+        """``config``: [{type, aug_type, params, prob}, ...]."""
         self._audio_stages = []
         self._feature_stages = []
+        stages = {'audio': (_AUDIO_TYPES, self._audio_stages),
+                  'feature': (_FEATURE_TYPES, self._feature_stages)}
         for spec in (config or []):
             aug_type = spec.get('aug_type')
             name = spec.get('type')
             prob = float(spec.get('prob', 0.0))
-            if aug_type == 'audio':
-                try:
-                    aug = _AUDIO_TYPES[name](**dict(spec.get('params', {})))
-                except (KeyError, TypeError, ValueError) as e:
-                    logger.warning(f"skipping augmentor {name}: {e!r}")
-                    continue
-                self._audio_stages.append((aug, prob, name))
-            elif aug_type == 'feature' and name in _FEATURE_TYPES:
-                self._feature_stages.append((name, prob))
-            else:
-                logger.warning(f"unknown augmentor {aug_type}/{name}")
+            if aug_type not in stages:
+                logger.warning(f"unknown aug_type: {aug_type}")
+                continue
+            types, out = stages[aug_type]
+            try:
+                aug = types[name](**dict(spec.get('params', {})))
+            except (KeyError, TypeError, ValueError) as e:
+                logger.warning(f"skipping augmentor {name}: {e!r}")
+                continue
+            out.append((aug, prob, name))
 
     def transform_audio(self, audio_segment):
         for aug, prob, _ in self._audio_stages:
@@ -56,9 +59,7 @@ class AugmentationPipeline:
                 aug.transform_audio(audio_segment)
 
     def transform_feature(self, feature):
-        if self._feature_stages:
-            raise NotImplementedError(
-                "host feature augmentation (SpecAugment/SpecSub on the host "
-                "features) is not ported yet (ROADMAP Queue A, item 12); "
-                "train with train_conf.device_frontend")
+        for aug, prob, _ in self._feature_stages:
+            if random.random() < prob:
+                feature = aug.transform_feature(feature)
         return feature

@@ -7,11 +7,13 @@ waveform [S], token ids): the wav is read (or a [start_time, end_time]
 slice of it), the audio augmentors run on it, and then the host fbank
 featurizes it or, in raw mode, it is resampled and dB-normalized alone.
 Precomputed pooled ``.npy`` features (``extract_features``' output) are
-read through a memory map. The features are not normalized here: the
+read through a memory map. ``manifest_type='binary'`` reads the records
+of ``data/binary.DatasetReader`` (``<manifest>.data`` and ``.header``)
+instead of the JSON lines. The features are not normalized here: the
 model holds the CMVN, and the trainer builds the dataset without one, so
 the dataset's ``mean_istd_filepath`` is not ported; nor is the C++ raw
 batch path (``load_raw_batch``, ``data/native_pipeline.py``; ROADMAP Queue
-A, item 12).
+A, item 2).
 
 ``collate_fn`` pads features (time and label axes rounded up to buckets,
 labels padded with −1) and hands waveform items to ``collate_raw_fn``,
@@ -25,6 +27,7 @@ import numpy as np
 
 from ppasr_tpu_torch.data.audio import AudioSegment
 from ppasr_tpu_torch.data.augmentor.augmentation import AugmentationPipeline
+from ppasr_tpu_torch.data.binary import DatasetReader
 from ppasr_tpu_torch.data.featurizer.audio_featurizer import AudioFeaturizer
 from ppasr_tpu_torch.data.featurizer.text_featurizer import TextFeaturizer
 from ppasr_tpu_torch.data.manifest import read_manifest
@@ -43,27 +46,38 @@ class ASRDataset:
                  augmentation_config: list = None,
                  train: bool = False,
                  return_raw: bool = False):
-        if manifest_type != 'txt':
-            raise NotImplementedError(
-                f"manifest_type={manifest_type!r}: the binary manifest is "
-                f"not ported yet (ROADMAP Queue A, item 12)")
         preprocess_conf = dict(preprocess_conf or {})
-        if max_duration < 0:
-            max_duration = float('inf')
-        self.manifest = read_manifest(manifest_path,
-                                      max_duration=max_duration,
-                                      min_duration=min_duration)
+        self.dataset_reader = None
+        if manifest_type == 'txt':
+            if max_duration < 0:
+                max_duration = float('inf')
+            self.manifest = read_manifest(manifest_path,
+                                          max_duration=max_duration,
+                                          min_duration=min_duration)
+        elif manifest_type == 'binary':
+            self.dataset_reader = DatasetReader(manifest_path,
+                                                min_duration=min_duration,
+                                                max_duration=max_duration)
+            self.manifest = None
+        else:
+            raise ValueError(f"unsupported manifest_type: {manifest_type}")
         self.audio_featurizer = AudioFeaturizer(**preprocess_conf, train=train)
         self.text_featurizer = TextFeaturizer(vocab_filepath)
         self.augmentation = AugmentationPipeline(augmentation_config) \
             if (train and augmentation_config) else None
         self._feature_pools = {}
         self.return_raw = bool(return_raw)
+        if self.return_raw and manifest_type != 'txt':
+            raise ValueError("return_raw requires a txt manifest of wavs")
 
     def __len__(self):
+        if self.dataset_reader is not None:
+            return len(self.dataset_reader)
         return len(self.manifest)
 
     def entry(self, idx: int) -> dict:
+        if self.dataset_reader is not None:
+            return self.dataset_reader.get_data(idx)
         return self.manifest[idx]
 
     def _audio(self, instance):

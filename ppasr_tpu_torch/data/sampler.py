@@ -2,7 +2,7 @@
 keeps the manifest's duration-sorted order; later epochs shift by a random
 k, group into batches and shuffle whole batches (``_batch_shuffle``, seeded
 by the epoch). The distributed sampler comes with DDP (ROADMAP Queue A,
-item 12)."""
+item 1)."""
 import random
 
 

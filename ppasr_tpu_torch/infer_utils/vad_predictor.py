@@ -14,7 +14,7 @@ through ``infer_utils/silero.py`` on ``device``; without such a file, the
 log-RMS energy of each window against a running noise floor. A weight file
 that exists but fails to load raises (the JAX predictor falls back to the
 next scorer). The JAX package's own conv+LSTM ``VADModel`` for a
-``vad_model.msgpack`` is not ported yet (ROADMAP Queue A item 14): such a
+``vad_model.msgpack`` is not ported yet (ROADMAP Queue A, item 5): such a
 file, with no Silero weights beside it, raises.
 """
 import os
@@ -48,7 +48,7 @@ class VADPredictor:
                                                        'vad_model.msgpack')):
             raise NotImplementedError(
                 "vad_model.msgpack (the JAX package's VADModel) is not "
-                "ported yet (ROADMAP Queue A item 14)")
+                "ported yet (ROADMAP Queue A, item 5)")
         self.reset_states()
 
     def reset_states(self):

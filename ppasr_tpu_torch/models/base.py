@@ -11,10 +11,10 @@ get the dtype:
 - ``cast_for_compute`` casts a module's weights once, in place, leaving the
   LayerNorms and the CMVN constants in float32: for inference;
 - ``cast_at_use`` keeps every parameter float32 and has ``Linear``,
-  ``Conv1d``, ``Conv2d`` and ``Embedding`` cast their weights and input to
-  the dtype at each call, as flax does: for training, where the master
-  weights and their gradients must stay float32. It is not
-  ``torch.autocast``, whose op lists are not flax's rule.
+  ``Conv1d``, ``Conv2d``, ``Embedding``, ``LSTM`` and ``GRU`` cast their
+  weights and input to the dtype at each call, as flax does: for training,
+  where the master weights and their gradients must stay float32. It is
+  not ``torch.autocast``, whose op lists are not flax's rule.
 
 ``Dropout`` is the JAX package's: the keep probability is quantized to
 q/256, the mask drawn from 8-bit random integers of the generator the
@@ -186,6 +186,34 @@ class Embedding(_CastAtUse, nn.Embedding):
         weight = self.weight if self.compute_dtype is None \
             else self.weight.to(self.compute_dtype)
         return F.embedding(ids, weight)
+
+
+class _CastAtUseRNN(_CastAtUse):
+    """Mixin of a one-layer ``nn.LSTM`` or ``nn.GRU``: with
+    ``compute_dtype`` set, ``forward`` runs on copies of the weights cast
+    to it (flax's RNN cells with a ``dtype``), the float32 parameters
+    behind them receiving the gradients. The input and the carry must be
+    in that dtype already."""
+
+    def forward(self, input, hx=None):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(input, hx)
+        self._update_flat_weights()
+        master = self._flat_weights
+        self._flat_weights = [w if w is None else w.to(dt) for w in master]
+        try:
+            return super().forward(input, hx)
+        finally:
+            self._flat_weights = master
+
+
+class LSTM(_CastAtUseRNN, nn.LSTM):
+    pass
+
+
+class GRU(_CastAtUseRNN, nn.GRU):
+    pass
 
 
 def compute_dtype_of(module: nn.Module) -> torch.dtype:

@@ -3,10 +3,14 @@ CTC head (counterpart of ppasr_tpu/models/deepspeech2.py:26-183).
 
 - ``Conv2dSubsampling4Pure`` (:32-52): two stride-2 3×3 VALID convs of 32
   channels with ReLU, flattened (f, c) with no projection.
-- ``CRNNEncoder`` (:55-126): per layer one ``nn.LSTM`` or ``nn.GRU``
-  (``fwd_rnns``), and when not streaming a second one over the reversed
-  sequence (``bwd_rnns``), their outputs concatenated; a LayerNorm
-  (eps 1e-6, flax's default) after each layer.
+- ``CRNNEncoder`` (:55-126): per layer one LSTM or GRU (``fwd_rnns``;
+  ``models/base.LSTM``/``GRU``, which cast their weights at use under
+  ``cast_at_use``, so ``enable_amp`` trains the cells in bf16 over float32
+  weights as the flax cells with ``dtype=bf16`` do), and when not
+  streaming a second one over the reversed sequence (``bwd_rnns``), their
+  outputs concatenated; a LayerNorm (eps 1e-6, flax's default) after each
+  layer. The input, the carry (``init_state``) and the outputs are in the
+  compute dtype.
 - ``DeepSpeech2Model`` (:129-183): the CTC loss alone (``loss_att`` and
   ``th_accuracy`` None), ``get_encoder_out``, ``get_encoder_logits``,
   ``get_ctc_log_probs`` and the streaming ``get_encoder_out_chunk`` with
@@ -34,8 +38,9 @@ from torch import nn
 from torch.nn import functional as F
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
-from ppasr_tpu_torch.models.base import (ASRModel, Conv2d, GlobalCMVN,
-                                         LayerNorm, compute_dtype_of)
+from ppasr_tpu_torch.models.base import (GRU, LSTM, ASRModel, Conv2d,
+                                         GlobalCMVN, LayerNorm,
+                                         compute_dtype_of)
 from ppasr_tpu_torch.models.ctc import CTCHead
 from ppasr_tpu_torch.models.subsampling import flatten_nhwc
 
@@ -93,7 +98,7 @@ class CRNNEncoder(nn.Module):
         self.global_cmvn = (GlobalCMVN(cmvn_mean, cmvn_istd)
                             if cmvn_mean is not None else None)
         self.conv = Conv2dSubsampling4Pure(32)
-        rnn = nn.GRU if use_gru else nn.LSTM
+        rnn = GRU if use_gru else LSTM
         dim = ((input_dim - 1) // 2 - 1) // 2 * 32
         self.fwd_rnns, self.bwd_rnns = nn.ModuleList(), nn.ModuleList()
         for _ in range(num_rnn_layers):

@@ -55,8 +55,9 @@ def _run_windows(model, inputs, chunk, left_chunks, reduce):
     if isinstance(model, DeepSpeech2Model):
         raise NotImplementedError(
             "streaming_eval drives the attention-family chunk API "
-            "(get_encoder_out_chunk with a ring-cache state); use the "
-            "predictor's predict_stream for deepspeech2")
+            "(get_encoder_out_chunk with a ring-cache state), as in the JAX "
+            "package; use the predictor's predict_stream for deepspeech2 "
+            "(ROADMAP, raises kept from the JAX package)")
     device = next(model.parameters()).device
     x, n_win, window, stride = _window_plan(inputs, chunk)
     out = []

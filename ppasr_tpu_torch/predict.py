@@ -86,12 +86,11 @@ from ppasr_tpu_torch.config import load_config
 from ppasr_tpu_torch.data.audio import AudioSegment
 from ppasr_tpu_torch.data.featurizer.audio_featurizer import AudioFeaturizer
 from ppasr_tpu_torch.data.featurizer.text_featurizer import TextFeaturizer
-from ppasr_tpu_torch.decoders.beam_search import BeamSearchDecoder
 from ppasr_tpu_torch.decoders.beam_search_torch import TorchBeamSearchDecoder
+from ppasr_tpu_torch.decoders.factory import DECODERS, build_decoder
 from ppasr_tpu_torch.decoders.greedy import (GreedyStreamingDecoder,
                                              greedy_decoder,
                                              greedy_decoder_batch)
-from ppasr_tpu_torch.decoders.native import NativeBeamSearchDecoder
 from ppasr_tpu_torch.decoders.rescoring import AttentionRescoringDecoder
 from ppasr_tpu_torch.infer_utils.pun_predictor import PunctuationPredictor
 from ppasr_tpu_torch.infer_utils.vad_predictor import VADPredictor
@@ -147,7 +146,6 @@ def _batch_bucket(n: int) -> int:
     return 1 << (n - 1).bit_length() if n > 1 else 1
 
 
-_DECODERS = ('ctc_greedy', 'ctc_beam_search', 'attention_rescoring')
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
 
@@ -213,7 +211,7 @@ class PPASRPredictor:
                                'n_mels': self.input_dim}
             self.decoder_name = decoder or 'ctc_greedy'
             self.decoder_configs = decoder_configs or {}
-        if self.decoder_name not in _DECODERS:
+        if self.decoder_name not in DECODERS:
             raise ValueError(f"unknown decoder {self.decoder_name!r}")
 
         self.audio_featurizer = AudioFeaturizer(**preprocess_conf,
@@ -245,7 +243,8 @@ class PPASRPredictor:
         full_path = os.path.join(model_path, 'model.msgpack')
         if not os.path.exists(full_path):
             raise FileNotFoundError(f"no model.msgpack in {model_path} (the "
-                                    f"int8 artifact is not ported yet)")
+                                    f"int8 artifact is not ported yet: "
+                                    f"ROADMAP Queue A, item 3)")
         state_dict = convert_params(load_msgpack(full_path))
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
@@ -280,45 +279,15 @@ class PPASRPredictor:
 
     def _init_decoder(self):
         """The beam decoder of ``decoder='ctc_beam_search'`` or the
-        rescorer of ``'attention_rescoring'`` (None for greedy decoding),
-        from ``decoder_configs``. Raises when it cannot be built."""
-        self._beam_decoder = None
-        self._rescorer = None
-        if self.decoder_name == 'attention_rescoring':
-            if self.use_model == 'deepspeech2':
-                raise ValueError("deepspeech2 has no attention decoder")
-            conf = dict(self.decoder_configs)
-            conf.pop('backend', None)
-            ctc_weight = conf.pop('rescore_ctc_weight',
-                                  self._model_conf.get('ctc_weight', 0.3))
-            max_hyp_len = conf.pop('max_hyp_len', 200)
-            self._rescorer = AttentionRescoringDecoder(
-                self.model, self.vocab_list, ctc_weight=ctc_weight,
-                max_hyp_len=max_hyp_len, device=self.device, **conf)
-            return
-        if self.decoder_name != 'ctc_beam_search':
-            return
-        conf = dict(self.decoder_configs)
-        backend = conf.pop('backend', 'torch')
-        lm = conf.get('language_model_path')
-        if backend in ('torch', 'jax') and lm and str(lm).endswith('.klm') \
-                and os.path.exists(lm):
-            # a .klm holds its n-grams as hashes, which the device tables
-            # cannot be built from; the native decoder reads the binary
-            logger.info(".klm language model: using the native beam-search "
-                        "backend")
-            backend = 'native'
-        if backend == 'host':
-            self._beam_decoder = BeamSearchDecoder(
-                vocab_list=self.vocab_list, **conf)
-        elif backend == 'native':
-            self._beam_decoder = NativeBeamSearchDecoder(
-                vocab_list=self.vocab_list, **conf)
-        elif backend in ('torch', 'jax'):
-            self._beam_decoder = TorchBeamSearchDecoder(
-                vocab_list=self.vocab_list, device=self.device, **conf)
-        else:
-            raise ValueError(f"unknown beam-search backend {backend!r}")
+        rescorer of ``'attention_rescoring'`` (both None for greedy
+        decoding), from ``decoder_configs`` (``decoders/factory``). Raises
+        when it cannot be built."""
+        decoder = build_decoder(self.decoder_name, self.decoder_configs,
+                                self.vocab_list, self.model, self.use_model,
+                                self._model_conf, self.device)
+        rescoring = isinstance(decoder, AttentionRescoringDecoder)
+        self._rescorer = decoder if rescoring else None
+        self._beam_decoder = None if rescoring else decoder
 
     def _warm_up(self):
         warm = np.random.default_rng(0).uniform(

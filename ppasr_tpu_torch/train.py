@@ -21,8 +21,8 @@ def parse_args(argv=None):
     add_arg('configs', str, 'configs/conformer.yml', 'config file path')
     add_arg('use_gpu', bool, True, 'train on cuda:0 (False: the CPU)')
     add_arg('save_model_path', str, 'models/', 'where to save checkpoints')
-    add_arg('log_dir', str, 'log/', 'log dir (the tensorboard writer is '
-            'not ported)')
+    add_arg('log_dir', str, 'log/', 'tensorboard scalars and the '
+            'profile_steps trace')
     add_arg('resume_model', str, None, 'checkpoint dir to resume from')
     add_arg('pretrained_model', str, None, 'pretrained weights to warm-start')
     add_arg('augment_conf_path', str, 'configs/augmentation.json',

@@ -20,7 +20,7 @@ device with no gradient; else features ('speech', 'speech_lens').
 The step runs under ``predict.ieee_float32()``: float32 matmuls and
 convolutions in full float32 and bf16 products reduced in float32, as XLA
 computes them. Data parallelism across processes (``data_mesh``,
-``shard_batch``, ``replicate``) comes with DDP (ROADMAP Queue A, item 12).
+``shard_batch``, ``replicate``) comes with DDP (ROADMAP Queue A, item 1).
 """
 import numpy as np
 import torch

@@ -1,23 +1,48 @@
-"""Training orchestration (counterpart of ppasr_tpu/trainer.py:50-872).
+"""Training orchestration (counterpart of ppasr_tpu/trainer.py:50-932).
 
 ``PPASRTrainer(configs, use_gpu=True, overwrites=None,
 data_augment_configs=None)``, for every family of ``models/factory``
 (DeepSpeech2's loss is CTC alone: its ``loss_att`` and ``th_accuracy``
 read 0 in the step's metrics, as in the JAX train step):
 
+- ``create_data`` (:88-128): the annotation directory's manifests
+  (``data/manifest.create_manifest``), the noise manifest, the vocabulary
+  (``<blank>``, ``<unk>``, the tokens seen at least ``count_threshold``
+  times by (−count, token), ``<eos>``), ``mean_istd.json``
+  (``data/normalizer``) and, for ``manifest_type: 'binary'``, the binary
+  stores; ``extract_features`` (:130-181): host features pooled into
+  ``.npy`` files flushed every 600 s of audio, and ``manifest_features``
+  lists that ``evaluate`` then reads.
 - ``train`` (:356-638): sortagrad batches of ``batch_size · accum_grad``
   utterances, each reshaped to [accum_grad, micro] and skipped when micro
   is 0; one optimizer update per batch (``train_state.make_train_step``);
   with ``train_conf.device_frontend`` the loader yields int16 waveforms
   and fbank with dither, SpecAugment and SpecSub run on the device
-  (``ops/frontend``), else host features; ``enable_amp`` computes in bf16
-  over float32 parameters; per-interval loss, lr and audio-s/s logs;
-  a per-epoch ``evaluate`` on the test set and on the train-subset probe
-  (``train_probe_size``); checkpoints ``epoch_N``, ``last_model`` and
-  ``best_model`` with rolling deletion; resume from ``last_model``.
-- ``evaluate`` (:710-872): greedy decoding at full context (or through
-  ``models/streaming_eval`` with ``streaming_eval``), CER or WER, and the
-  mean loss at full context.
+  (``ops/frontend``), else host features with the host feature stages
+  (``data/augmentor/feature_augmentors``); ``enable_amp`` computes in bf16
+  over float32 parameters; per-interval loss, lr and audio-s/s logs; a
+  per-epoch ``evaluate`` on the test set and on the train-subset probe
+  (``train_probe_size``, txt manifests); checkpoints ``epoch_N``,
+  ``last_model`` and ``best_model`` with rolling deletion; resume from
+  ``last_model``; ``train_conf.profile_steps: [start, stop]``, one
+  ``torch.profiler`` trace (CPU and, on a card, CUDA activity) into
+  ``<log_dir>/profile``; the scalars ``Train/Loss``, ``Train/lr``,
+  ``Train/<metric>``, ``Test/<metric>`` and ``Test/Loss`` through
+  tensorboardX or ``torch.utils.tensorboard`` when one imports (else one
+  warning). The eval decoder is built before the first step.
+- ``evaluate`` (:710-870) → (error rate, mean loss), with the decoder
+  that ``decoders/factory`` builds (:640-692): greedy; ``ctc_beam_search`` with
+  ``backend`` ``'torch'`` (alias ``'jax'``, the default; from the CTC
+  logits), ``'host'`` or ``'native'`` (an existing ``.klm`` goes to
+  native); ``attention_rescoring`` (``rescore_ctc_weight`` and
+  ``max_hyp_len`` from the beam conf). ``streaming_eval`` encodes through
+  ``models/streaming_eval``: the argmax per window for greedy, else the
+  posteriors then the beam (rescoring decodes greedy there, as in JAX).
+  The loss is the full-context one. Each call's per-utterance text,
+  score and reference are kept in ``eval_results``.
+- ``export`` (:874-932): ``infer/`` with ``model.msgpack``,
+  ``inference.json``, ``mean_istd.json`` and the vocabulary, which both
+  packages' predictors load.
 - Checkpoints hold ``model.msgpack``, the flax tree that both packages
   read (``utils/checkpoint.export_params``), ``model.state`` and, unlike
   the JAX package's ``optimizer.msgpack``, the optimizer's state as
@@ -26,17 +51,19 @@ read 0 in the step's metrics, as in the JAX train step):
 
 The model runs on ``cuda:0`` unless ``use_gpu=False``; without a card
 ``use_gpu=True`` raises. Each update's random streams derive from seed 1000
-and the update count. Left out, with their ROADMAP Queue A item 12:
-multi-process data parallelism, eval decoders other than greedy,
-``profile_steps``, the tensorboard writer, ``pad_to_max`` (one padded
-shape for a single compile, which eager PyTorch does not need), the binary
-manifest, host feature augmentation, ``create_data``,
-``extract_features`` and ``export``.
+and the update count. No fallback: an unknown decoder, a beam decoder or
+rescorer that fails to build, and rescoring with DeepSpeech2 raise, where
+the JAX trainer decodes greedy; ``streaming_eval`` with DeepSpeech2
+raises, as in JAX. Left out: multi-process data parallelism (ROADMAP
+Queue A, item 1), the int8 and ``torch.export`` artifacts of ``export``
+(item 3), and ``pad_to_max``, one padded shape for a single compile,
+which eager PyTorch does not need.
 """
 import json
 import os
 import shutil
 import time
+from collections import Counter
 from datetime import timedelta
 
 import numpy as np
@@ -45,9 +72,18 @@ import torch
 from ppasr_tpu_torch.config import load_augmentation_config, load_config
 from ppasr_tpu_torch.data.dataset import ASRDataset
 from ppasr_tpu_torch.data.loader import DataLoader
+from ppasr_tpu_torch.data.manifest import (count_manifest, create_manifest,
+                                           create_manifest_binary,
+                                           create_noise, read_manifest)
+from ppasr_tpu_torch.data.normalizer import FeatureNormalizer
 from ppasr_tpu_torch.data.sampler import SortagradBatchSampler
+from ppasr_tpu_torch.decoders.beam_search_torch import TorchBeamSearchDecoder
+from ppasr_tpu_torch.decoders.factory import build_decoder
 from ppasr_tpu_torch.decoders.greedy import _collapse, greedy_decoder_batch
+from ppasr_tpu_torch.decoders.rescoring import AttentionRescoringDecoder
 from ppasr_tpu_torch.models.factory import build_model
+from ppasr_tpu_torch.models.streaming_eval import (streaming_encode_batch,
+                                                   streaming_greedy_batch)
 from ppasr_tpu_torch.predict import ieee_float32
 from ppasr_tpu_torch.train_state import (TrainState, create_train_state,
                                          fold_in, make_train_step)
@@ -60,7 +96,7 @@ from ppasr_tpu_torch.utils.metrics import cer, wer
 logger = setup_logger(__name__)
 
 TRAIN_SEED = 1000
-NOT_PORTED = "is not ported yet (ROADMAP Queue A, item 12)"
+NOT_PORTED = "is not ported yet (ROADMAP Queue A, item {})"
 
 
 class PPASRTrainer:
@@ -90,6 +126,9 @@ class PPASRTrainer:
         self.stop_train = False
         self.stop_eval = False
         self.step_losses = []   # every update's loss, a 0-d device tensor
+        self.eval_results = []  # the last evaluate's utterances
+        self._eval_decoder_model = None
+        self._eval_decoder = None
 
     def _overwrite(self, dotted_key, value):
         node = self.configs
@@ -104,6 +143,95 @@ class PPASRTrainer:
         elif isinstance(old, float):
             value = float(value)
         node[keys[-1]] = value
+
+    # ------------------------------------------------------------ data prep
+
+    def create_data(self, annotation_path: str = 'dataset/annotation/',
+                    noise_dir: str = 'dataset/audio/noise',
+                    num_samples: int = 5000, count_threshold: int = 2,
+                    is_change_frame_rate: bool = True,
+                    max_test_manifest: int = 10000,
+                    only_keep_zh_en: bool = True):
+        """Manifests → vocabulary → CMVN → binary stores (:88-128)."""
+        dataset_conf = self.configs.dataset_conf
+        sample_rate = self.configs.preprocess_conf.sample_rate
+        create_manifest(annotation_path, dataset_conf.train_manifest,
+                        dataset_conf.test_manifest,
+                        is_change_frame_rate=is_change_frame_rate,
+                        target_sr=sample_rate,
+                        max_test_manifest=max_test_manifest,
+                        only_keep_zh_en=only_keep_zh_en)
+        if noise_dir and os.path.exists(noise_dir):
+            create_noise(noise_dir, dataset_conf.noise_manifest_path,
+                         target_sr=sample_rate)
+        counter = Counter()
+        count_manifest(counter, dataset_conf.train_manifest)
+        tokens = [t for t, c in sorted(counter.items(),
+                                       key=lambda kv: (-kv[1], kv[0]))
+                  if c >= count_threshold]
+        os.makedirs(os.path.dirname(dataset_conf.dataset_vocab) or '.',
+                    exist_ok=True)
+        with open(dataset_conf.dataset_vocab, 'w', encoding='utf-8') as f:
+            f.write('<blank>\t-1\n<unk>\t-1\n')
+            for t in tokens:
+                f.write(f"{t}\t{counter[t]}\n")
+            f.write('<eos>\t-1\n')
+        logger.info(f"vocab size: {len(tokens) + 3}")
+        FeatureNormalizer(dataset_conf.mean_istd_path).compute_mean_istd(
+            dict(self.configs.preprocess_conf),
+            read_manifest(dataset_conf.train_manifest),
+            num_samples=num_samples)
+        if dataset_conf.get('manifest_type') == 'binary':
+            create_manifest_binary(dataset_conf.train_manifest,
+                                   dataset_conf.test_manifest)
+        logger.info("create_data done")
+
+    def extract_features(self, save_dir: str = 'dataset/features',
+                         splits=('train', 'test')):
+        """Host features of the ``splits`` manifests, appended into one
+        array per ~600 s of audio and saved as ``<save_dir>/<split>/
+        <time>/<n>.npy``; the entries of ``<manifest>`` with
+        ``manifest`` → ``manifest_features`` carry each utterance's
+        ``start_frame``/``end_frame`` in its file (:130-181)."""
+        manifests = {'train': self.configs.dataset_conf.train_manifest,
+                     'test': self.configs.dataset_conf.test_manifest}
+        for data_list_file in [manifests[s] for s in splits]:
+            split = data_list_file.split('.')[-1]
+            out_dir = os.path.join(save_dir, split, str(int(time.time())))
+            os.makedirs(out_dir, exist_ok=True)
+            dataset = ASRDataset(
+                data_list_file, self.configs.dataset_conf.dataset_vocab,
+                preprocess_conf=dict(self.configs.preprocess_conf),
+                max_duration=-1, min_duration=0,
+                manifest_type=self.configs.dataset_conf.get('manifest_type',
+                                                            'txt'))
+            save_data_list = data_list_file.replace('manifest',
+                                                    'manifest_features')
+            pooled, time_sum, file_idx = None, 0.0, 0
+            save_path = os.path.join(out_dir, f'{file_idx}.npy')
+            with open(save_data_list, 'w', encoding='utf-8') as f:
+                for i in range(len(dataset)):
+                    feature, _ = dataset[i]
+                    entry = dataset.entry(i)
+                    time_sum += entry.get('duration', 0)
+                    pooled = feature if pooled is None else \
+                        np.concatenate([pooled, feature], axis=0)
+                    f.write(json.dumps(
+                        {'audio_filepath': save_path.replace('\\', '/'),
+                         'duration': entry.get('duration', 0),
+                         'text': entry['text'],
+                         'start_frame': pooled.shape[0] - feature.shape[0],
+                         'end_frame': pooled.shape[0]},
+                        ensure_ascii=False) + '\n')
+                    if time_sum > 600:
+                        np.save(save_path, pooled)
+                        pooled, time_sum = None, 0.0
+                        file_idx += 1
+                        save_path = os.path.join(out_dir, f'{file_idx}.npy')
+                if pooled is not None:
+                    np.save(save_path, pooled)
+            logger.info(f"features for [{data_list_file}] written; new list: "
+                        f"[{save_data_list}]")
 
     # ------------------------------------------------------ model and data
 
@@ -249,13 +377,10 @@ class PPASRTrainer:
     def train(self, save_model_path: str = 'models/',
               log_dir: str = 'log/', max_epoch: int = None,
               resume_model: str = None, pretrained_model: str = None):
-        """Train; returns the final ``TrainState``. ``log_dir`` is accepted
-        for the CLI's sake: the tensorboard writer is not ported."""
+        """Train; returns the final ``TrainState``. ``log_dir`` receives the
+        scalars and the ``profile_steps`` trace."""
         train_conf = self.configs.train_conf
         dataset_conf = self.configs.dataset_conf
-        if train_conf.get('profile_steps'):
-            raise NotImplementedError(f"train_conf.profile_steps {NOT_PORTED}")
-        self._check_eval_decoder()
         accum_grad = int(train_conf.get('accum_grad', 1))
         batch_size = int(dataset_conf.get('batch_size', 16))
         max_epoch = max_epoch or int(train_conf.get('max_epoch', 200))
@@ -271,7 +396,8 @@ class PPASRTrainer:
         # manifest, evenly spaced over its durations (:383-399)
         probe_dataset = None
         probe_size = int(train_conf.get('train_probe_size', 64))
-        if probe_size > 0:
+        if probe_size > 0 and \
+                dataset_conf.get('manifest_type', 'txt') == 'txt':
             probe_dataset = self._build_dataset(
                 train=False, manifest_override=dataset_conf.train_manifest)
             stride = max(1, len(probe_dataset.manifest) // probe_size)
@@ -297,6 +423,8 @@ class PPASRTrainer:
                             time_bucket=64, label_bucket=16)
 
         model = self._build_model(input_dim, vocab_size)
+        # a decoder that cannot be built raises before the first step
+        self._eval_decoder_for(model, test_dataset.vocab_list)
         self._init_params(model)
         from ppasr_tpu_torch.utils.model_summary import summary
         summary(model)
@@ -305,6 +433,9 @@ class PPASRTrainer:
         last_epoch = self._load_checkpoint(resume_model or save_model_path,
                                            state)
         train_step = make_train_step(accum_grad, frontend=frontend)
+        writer = _summary_writer(log_dir)
+        profile_steps = train_conf.get('profile_steps') or None
+        profiler = None
 
         best_error = float('inf')
         best_state_path = os.path.join(self._save_dir(save_model_path),
@@ -337,6 +468,13 @@ class PPASRTrainer:
                                                            micro)}
                 batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
                     self.device, non_blocking=True) for k, v in batch.items()}
+                if profile_steps:
+                    start, stop = (int(v) for v in profile_steps)
+                    if profiler is None and start <= state.step < stop:
+                        profiler = self._start_profiler()
+                    elif profiler is not None and state.step >= stop:
+                        self._stop_profiler(profiler, log_dir)
+                        profiler, profile_steps = None, None
                 metrics = train_step(state, batch,
                                      fold_in(TRAIN_SEED, state.step))
                 self.step_losses.append(metrics['loss'])
@@ -357,6 +495,9 @@ class PPASRTrainer:
                         f"reader_cost {reader_cost:.3f}s "
                         f"batch_cost {batch_cost:.3f}s "
                         f"ips {ips:.2f} audio-s/s eta {eta}")
+                    if writer:
+                        writer.add_scalar('Train/Loss', loss, state.step)
+                        writer.add_scalar('Train/lr', lr, state.step)
                     train_times = []
                 if batch_id > 0 and batch_id % 10000 == 0:
                     self._save_checkpoint(save_model_path, state, epoch)
@@ -376,6 +517,13 @@ class PPASRTrainer:
                     model=model, test_dataset=probe_dataset, sample_log_n=2)
                 logger.info(f"epoch {epoch} train-probe {metric_name}="
                             f"{train_err:.5f} loss={probe_loss:.5f}")
+                if writer:
+                    writer.add_scalar(f'Train/{metric_name}', train_err,
+                                      state.step)
+            if writer:
+                writer.add_scalar(f'Test/{metric_name}', error_rate,
+                                  state.step)
+                writer.add_scalar('Test/Loss', test_loss, state.step)
             self._save_checkpoint(save_model_path, state, epoch + 1,
                                   error_rate, test_loss)
             if error_rate < best_error:
@@ -384,26 +532,80 @@ class PPASRTrainer:
                                       error_rate, test_loss, best=True)
             if self.stop_train:
                 break
+        if profiler is not None:
+            self._stop_profiler(profiler, log_dir)
+        if writer:
+            writer.close()
         return state
+
+    def _start_profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == 'cuda':
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.__enter__()
+        return profiler
+
+    @staticmethod
+    def _stop_profiler(profiler, log_dir):
+        profiler.__exit__(None, None, None)
+        out = os.path.join(log_dir, 'profile')
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, 'trace.json')
+        profiler.export_chrome_trace(path)
+        logger.info(f"profiler trace written to {path}")
 
     # -------------------------------------------------------------- evaluate
 
-    def _check_eval_decoder(self):
-        name = self.configs.get('decoder', 'ctc_greedy')
-        if name != 'ctc_greedy':
-            raise NotImplementedError(
-                f"in-training evaluation with decoder {name!r} {NOT_PORTED}; "
-                f"set decoder: 'ctc_greedy'")
+    def _eval_decoder_for(self, model, vocab):
+        """The config's decoder for ``model`` (``decoders/factory``; None
+        for greedy) on the trainer's device, built once per model
+        (:640-692, :781-783). Raises when it cannot be built."""
+        if self._eval_decoder_model is not model:
+            self._eval_decoder = build_decoder(
+                self.configs.get('decoder', 'ctc_greedy'),
+                self.configs.get('ctc_beam_search_decoder_conf', {}), vocab,
+                model, self.use_model,
+                self.configs.get('model_conf', {}), self.device)
+            self._eval_decoder_model = model
+        return self._eval_decoder
+
+    def _decode(self, decoder, model, x, x_lens, inputs, in_lens, vocab,
+                streaming_eval):
+        """One batch's [(score, text)] through the branch of ``evaluate``
+        that the decoder and ``streaming_eval`` select (:800-857)."""
+        rescoring = isinstance(decoder, AttentionRescoringDecoder)
+        if streaming_eval and decoder is None:
+            ids, mp, olens = streaming_greedy_batch(model, inputs, in_lens)
+            return [_collapse(ids[b, :int(olens[b])], mp[b, :int(olens[b])],
+                              vocab) for b in range(ids.shape[0])]
+        if streaming_eval:
+            probs, olens = streaming_encode_batch(model, inputs, in_lens)
+        elif rescoring:
+            enc, probs, olens = model.encode_for_rescore(x, x_lens)
+            return decoder.decode_batch_rescore(enc, probs, olens)
+        elif isinstance(decoder, TorchBeamSearchDecoder):
+            logits, olens = model.get_encoder_logits(x, x_lens)
+            return decoder.decode_batch_from_logits(logits, olens)
+        else:
+            probs, olens = model.get_encoder_out(x, x_lens)
+        olens = np.asarray(olens.cpu() if torch.is_tensor(olens) else olens)
+        if isinstance(decoder, TorchBeamSearchDecoder):
+            return decoder.decode_batch(probs, olens)
+        if decoder is not None and not rescoring:
+            return decoder.decode_batch(probs.float().cpu().numpy(), olens)
+        return greedy_decoder_batch(probs, olens, vocab)
 
     def evaluate(self, resume_model: str = 'models/', model=None,
                  test_dataset=None, display_result: bool = False,
                  max_batches: int = None, sample_log_n: int = 0,
                  streaming_eval: bool = False):
-        """Greedy-decode the test set → (error rate, mean loss) (:710-870).
-        Without ``model`` the checkpoint at ``resume_model`` is loaded.
-        ``streaming_eval`` encodes through the chunked streaming path
-        (``models/streaming_eval``), the CER a live stream would see."""
-        self._check_eval_decoder()
+        """Decode the test set with the config's decoder → (error rate, mean
+        loss) (:710-870); the per-utterance {'text', 'score', 'reference',
+        'error'} go to ``eval_results``. Without ``model`` the checkpoint
+        at ``resume_model`` is loaded. ``streaming_eval`` encodes through
+        the chunked streaming path (``models/streaming_eval``), the error
+        rate a live stream would see."""
         dataset_conf = self.configs.dataset_conf
         if test_dataset is None:
             test_dataset = self._build_dataset(train=False)
@@ -413,17 +615,24 @@ class PPASRTrainer:
                                       test_dataset.vocab_size)
             self._load_checkpoint(resume_model, self._create_state(model),
                                   required=True)
+        if streaming_eval and self.use_model == 'deepspeech2':
+            raise NotImplementedError(
+                "streaming_eval drives the attention-family chunk API, as in "
+                "the JAX trainer; use the predictor's predict_stream for "
+                "deepspeech2 (ROADMAP, raises kept from the JAX package)")
+        decoder = self._eval_decoder_for(model, vocab)
         batch_size = int(dataset_conf.get(
             'eval_batch_size', 4 * int(dataset_conf.get('batch_size', 16))))
         sampler = SortagradBatchSampler(len(test_dataset), batch_size,
                                         drop_last=False, shuffle=False)
         loader = DataLoader(test_dataset, sampler, num_workers=2,
                             shuffle_in_batch=False)
-        error_fn = cer if self.configs.get('metrics_type', 'cer') == 'cer' \
-            else wer
+        metrics_type = self.configs.get('metrics_type', 'cer')
+        error_fn = cer if metrics_type == 'cer' else wer
         was_training = model.training
         model.eval()
-        errors, losses = [], []
+        self.eval_results = []
+        losses = []
         try:
             with torch.no_grad(), ieee_float32():
                 for i, (inputs, labels, in_lens, lab_lens) in \
@@ -432,34 +641,92 @@ class PPASRTrainer:
                         break
                     x = torch.from_numpy(inputs).to(self.device)
                     x_lens = torch.from_numpy(in_lens).to(self.device)
-                    if streaming_eval:
-                        from ppasr_tpu_torch.models.streaming_eval import \
-                            streaming_greedy_batch
-                        ids, mp, olens = streaming_greedy_batch(
-                            model, inputs, in_lens)
-                        results = [_collapse(ids[b, :int(olens[b])],
-                                             mp[b, :int(olens[b])], vocab)
-                                   for b in range(ids.shape[0])]
-                    else:
-                        probs, olens = model.get_encoder_out(x, x_lens)
-                        results = greedy_decoder_batch(probs, olens.cpu(),
-                                                       vocab)
+                    results = self._decode(decoder, model, x, x_lens, inputs,
+                                           in_lens, vocab, streaming_eval)
                     out = model(x, x_lens,
                                 torch.from_numpy(labels).to(self.device),
                                 torch.from_numpy(lab_lens).to(self.device))
                     losses.append(float(out['loss']))
-                    for b, (_, text) in enumerate(results):
+                    for b, (score, text) in enumerate(results):
                         target = labels_to_string(
                             labels[b][:int(lab_lens[b])], vocab)
                         e = error_fn(text, target)
-                        if display_result or len(errors) < sample_log_n:
+                        if display_result or \
+                                len(self.eval_results) < sample_log_n:
                             logger.info(f"ref: {target} | hyp: {text} | "
-                                        f"{e:.4f}")
-                        errors.append(e)
+                                        f"{metrics_type}: {e:.4f}")
+                        self.eval_results.append(
+                            {'text': text, 'score': float(score),
+                             'reference': target, 'error': e})
                     if self.stop_eval:
                         break
         finally:
             model.train(was_training)
+        errors = [r['error'] for r in self.eval_results]
         error_rate = float(np.mean(errors)) if errors else float('inf')
         test_loss = float(np.mean(losses)) if losses else float('inf')
         return error_rate, test_loss
+
+    # ---------------------------------------------------------------- export
+
+    def export(self, save_model_path: str = 'models/',
+               resume_model: str = None, save_quant: bool = False,
+               save_stablehlo: bool = False):
+        """Write ``<save_model_path>/<model>/infer`` from the checkpoint at
+        ``resume_model`` (default: ``last_model`` under
+        ``save_model_path``): ``model.msgpack`` (the flax tree, which the
+        JAX predictor reads too), ``inference.json`` and copies of
+        ``mean_istd.json`` and the vocabulary (:874-932). Returns the
+        directory."""
+        if save_quant:
+            raise NotImplementedError(
+                f"save_quant, the int8 weight-quantized artifact, "
+                f"{NOT_PORTED.format(3)}")
+        if save_stablehlo:
+            raise NotImplementedError(
+                f"save_stablehlo, the serialized offline and chunk programs "
+                f"(torch.export in the port), {NOT_PORTED.format(3)}")
+        test_dataset = self._build_dataset(train=False)
+        model = self._build_model(test_dataset.feature_dim,
+                                  test_dataset.vocab_size)
+        self._load_checkpoint(resume_model or save_model_path,
+                              self._create_state(model), required=True)
+        infer_dir = os.path.join(self._save_dir(save_model_path), 'infer')
+        os.makedirs(infer_dir, exist_ok=True)
+        for src in [self.configs.dataset_conf.mean_istd_path,
+                    self.configs.dataset_conf.dataset_vocab]:
+            if src and os.path.exists(src):
+                shutil.copy(src, os.path.join(infer_dir,
+                                              os.path.basename(src)))
+        save_msgpack(os.path.join(infer_dir, 'model.msgpack'),
+                     export_params(model))
+        with open(os.path.join(infer_dir, 'inference.json'), 'w',
+                  encoding='utf-8') as f:
+            json.dump({'use_model': self.use_model,
+                       'streaming': self.streaming,
+                       'input_dim': test_dataset.feature_dim,
+                       'vocab_size': test_dataset.vocab_size,
+                       'encoder_conf': dict(self.configs.get('encoder_conf',
+                                                             {}) or {}),
+                       'decoder_conf': dict(self.configs.get('decoder_conf',
+                                                             {}) or {}),
+                       'model_conf': dict(self.configs.get('model_conf', {})
+                                          or {})}, f, indent=2)
+        logger.info(f"exported inference artifact to {infer_dir}")
+        return infer_dir
+
+
+def _summary_writer(log_dir):
+    """A tensorboard ``SummaryWriter`` into ``log_dir`` from tensorboardX,
+    else from ``torch.utils.tensorboard``; None, with one warning, when
+    neither imports."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            logger.warning("neither tensorboardX nor tensorboard imports: "
+                           "the training scalars are not written")
+            return None
+    return SummaryWriter(log_dir)

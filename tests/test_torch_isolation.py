@@ -3,9 +3,10 @@ none of JAX, flax, the JAX package, msgpack, PyYAML, distutils or
 Levenshtein (the card's machine has torch, numpy and scipy, and Python 3.12
 has no distutils), and
 the predictor refuses ``use_gpu=True`` without a card. ``chip_smoke.py``
-also imports the fixture helpers in tests/make_torch_smoke_fixture.py and
-tests/make_torch_train_fixture.py, whose JAX imports sit inside ``main``;
-importing them loads none of the above."""
+also imports the fixture helpers in tests/make_torch_smoke_fixture.py,
+tests/make_torch_train_fixture.py, tests/make_torch_zoo_fixture.py and
+tests/make_torch_recipe_fixture.py, whose JAX imports sit inside
+functions; importing them loads none of the above."""
 import ast
 import glob
 import os
@@ -77,7 +78,12 @@ def test_import_leaves_no_forbidden_module_loaded():
             "ppasr_tpu_torch.data.augmentor.audio_augmentors, "
             "ppasr_tpu_torch.data.augmentor.base, "
             "ppasr_tpu_torch.utils.model_summary, "
-            "ppasr_tpu_torch.utils.checkpoint;"
+            "ppasr_tpu_torch.utils.checkpoint, ppasr_tpu_torch.data.binary, "
+            "ppasr_tpu_torch.data.normalizer, "
+            "ppasr_tpu_torch.data.augmentor.feature_augmentors, "
+            "ppasr_tpu_torch.create_data, ppasr_tpu_torch.extract_features, "
+            "ppasr_tpu_torch.eval, ppasr_tpu_torch.tune, "
+            "ppasr_tpu_torch.export_model;"
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,

@@ -16,7 +16,11 @@ of the training fixture's utterances written as WAVs:
 - ``export_params``' msgpack read by ``flax.serialization.from_bytes`` into
   the JAX model's parameter tree, equal leaf by leaf;
 - the CLI: ``--help`` and one run; ``use_gpu=True`` without a card raises,
-  in the trainer and in the CLI with its default.
+  in the trainer and in the CLI with its default;
+- ``train_conf.profile_steps: [0, 1]`` writes one ``torch.profiler``
+  trace into ``<log_dir>/profile``, and the tensorboard scalars
+  ``Train/Loss``, ``Train/lr``, ``Train/cer``, ``Test/cer`` and
+  ``Test/Loss`` are written once per update or epoch into ``log_dir``.
 """
 import json
 import os
@@ -97,8 +101,11 @@ def _trainer(conf, **kw):
 @pytest.fixture(scope='module')
 def trained(workspace):
     d, conf = workspace
-    trainer = _trainer(conf, overwrites='train_conf.train_probe_size=3')
-    state = trainer.train(save_model_path=str(d / 'models'), max_epoch=2)
+    profiled = json.loads(json.dumps(conf))
+    profiled['train_conf']['profile_steps'] = [0, 1]
+    trainer = _trainer(profiled, overwrites='train_conf.train_probe_size=3')
+    state = trainer.train(save_model_path=str(d / 'models'),
+                          log_dir=str(d / 'log'), max_epoch=2)
     return d, conf, trainer, state
 
 
@@ -206,3 +213,24 @@ def test_use_gpu_without_card_raises(workspace):
         PPASRTrainer(conf, use_gpu=True)
     with pytest.raises(RuntimeError, match='cuda'):
         train_cli.main(['--configs', str(d / 'conf.yml')])
+
+
+def test_profile_trace_and_scalars_written(trained):
+    from tensorboard.backend.event_processing.event_accumulator import \
+        EventAccumulator
+    d, _, trainer, _ = trained
+    traces = os.listdir(d / 'log' / 'profile')
+    assert traces == ['trace.json']
+    with open(d / 'log' / 'profile' / 'trace.json', encoding='utf-8') as f:
+        events = json.load(f)['traceEvents']
+    assert any('aten::' in str(e.get('name', '')) for e in events)
+    acc = EventAccumulator(str(d / 'log'))
+    acc.Reload()
+    tags = acc.Tags()['scalars']
+    assert sorted(tags) == ['Test/Loss', 'Test/cer', 'Train/Loss',
+                            'Train/cer', 'Train/lr']
+    losses = [e.value for e in acc.Scalars('Train/Loss')]
+    assert [e.step for e in acc.Scalars('Train/Loss')] == [1, 2]
+    np.testing.assert_allclose(losses, [float(v) for v in
+                                        trainer.step_losses], rtol=1e-6)
+    assert [e.step for e in acc.Scalars('Test/cer')] == [1, 2]

@@ -14,7 +14,12 @@ without a card). No JAX here:
   mode (the train step's deterministic mode; cuDNN runs an RNN's backward
   only in training mode, which the encoder keeps its RNNs in), each
   parameter's gradient as close to the float64 gradient as the CPU's
-  float32 one (within twice its error).
+  float32 one (within twice its error);
+- DeepSpeech2 with ``enable_amp`` (its LSTMs in bf16 over float32
+  weights, cast at use) at full width: one deterministic step on B1's
+  features of the training fixture's batch, loss terms and gradient norm
+  against the JAX bf16 step of tests/fixtures/torch_recipe.npz within
+  make_torch_train_fixture's bf16 tolerances.
 """
 import copy
 import os
@@ -30,6 +35,8 @@ from ppasr_tpu_torch.models.deepspeech2 import CRNNEncoder
 from ppasr_tpu_torch.predict import ieee_float32
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import make_torch_train_fixture as tf  # noqa: E402
+import make_torch_recipe_fixture as rf  # noqa: E402
 import make_torch_zoo_fixture as zf  # noqa: E402
 
 
@@ -142,3 +149,28 @@ def test_ds2_backward_in_eval_mode(use_gru, monkeypatch):
         err_cpu = (cpu[name] - g).norm().item()
         assert err_card <= 2 * err_cpu + 1e-6 * g.norm().item(), \
             (name, err_card, err_cpu)
+
+
+@pytest.mark.gpu
+def test_ds2_bf16_step_matches_jax():
+    from ppasr_tpu_torch.ops.frontend import make_device_frontend
+    from ppasr_tpu_torch.train_state import (create_train_state,
+                                             make_train_step)
+    dev = _card()
+    model, conf = zf.zoo_model('deepspeech2')
+    model.to(dev).set_compute_dtype(torch.bfloat16, at_use=True)
+    state = create_train_state(model, dict(conf.optimizer_conf),
+                               float(conf.train_conf.grad_clip))
+    batch = dict(zip(('wav', 'wav_lens', 'text', 'text_lens'),
+                     [torch.from_numpy(a).to(dev)[None]
+                      for a in tf.batch(tf.load())]))
+    step = make_train_step(1, make_device_frontend({'n_mels': 80}),
+                           deterministic=True)
+    metrics = step(state, batch, 0)
+    want = np.load(rf.OUT)
+    for k, rtol in (('loss', tf.BF16_LOSS_RTOL),
+                    ('loss_ctc', tf.BF16_LOSS_RTOL),
+                    ('grad_norm', tf.BF16_GRAD_NORM_RTOL)):
+        assert metrics[k].item() == pytest.approx(
+            float(want[f'ds2_bf16_{k}']), rel=rtol), k
+    assert all(p.dtype == torch.float32 for p in model.parameters())

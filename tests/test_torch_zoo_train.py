@@ -13,7 +13,12 @@ committed, its paths and widths overwritten. And a fresh
 initializers: every leaf's mean and deviation within 5/sqrt(size)
 deviations of a flax init's (the RNN cells' LeCun-normal and orthogonal
 kernels, the Squeezeformer's scale-aware uniform ones, the grouped
-attention's Xavier biases), constant leaves equal."""
+attention's Xavier biases), constant leaves equal. DeepSpeech2 with
+``enable_amp`` (its LSTM or GRU cells in bf16 over float32 weights, as
+the flax cells with ``dtype=bf16``): one deterministic train step's loss
+terms within ``BF16_LOSS_RTOL`` and its gradient norm within
+``BF16_GRAD_NORM_RTOL`` of the JAX bf16 model's on the same unit-gain
+``fill_weights`` parameters."""
 import json
 import os
 
@@ -32,10 +37,15 @@ from ppasr_tpu_torch.data.audio import AudioSegment
 from ppasr_tpu_torch.models.factory import build_model
 from ppasr_tpu_torch.predict import PPASRPredictor
 from ppasr_tpu_torch.trainer import PPASRTrainer
-from ppasr_tpu_torch.utils.checkpoint import (convert_params, load_msgpack,
+from ppasr_tpu_torch.utils.checkpoint import (convert_params, export_params,
+                                              load_msgpack,
                                               write_inference_artifact)
+from ppasr_tpu.trainer import PPASRTrainer as JaxTrainer
+from ppasr_tpu_torch.train_state import create_train_state, make_train_step
 from torch_tiny_artifact import ZOO
 from torch_train_util import one_torch_thread  # noqa: F401
+from torch_zoo_util import TEXT, TEXT_LENS, inputs
+from make_torch_zoo_fixture import fill_weights
 
 ROOT = tf.ROOT
 N = 2
@@ -147,3 +157,47 @@ def test_fresh_init_statistics_match_jax(use_model, gru):
         tol = 5 / np.sqrt(w.size) * w.std()
         assert abs(g.mean() - w.mean()) <= tol, n
         assert abs(g.std() - w.std()) <= tol, n
+
+
+@pytest.mark.parametrize('gru', [False, True], ids=['lstm', 'gru'])
+def test_deepspeech2_bf16_step_matches_jax(gru):
+    conf = json.loads(json.dumps(load_config(os.path.join(
+        ROOT, 'configs', 'campaign', 'deepspeech2_synth.yml'))))
+    assert conf['train_conf']['enable_amp'] is True
+    conf['encoder_conf'] = dict(ZOO['deepspeech2'][0], use_gru=gru)
+    conf['dataset_conf']['mean_istd_path'] = os.path.join(
+        ROOT, 'dataset', 'mean_istd.json')
+    model = PPASRTrainer(conf, use_gpu=False)._build_model(80, 12)
+    # unit gain: at ZOO_GAIN's 2 the saturated cells' bf16 gradient norm
+    # moves some 4 % from the float32 one in either package, so the two
+    # land up to 9 % apart; at unit gain each stays within 1-4 %
+    fill_weights(model, 3, 1.0)
+    rnn = model.encoder.fwd_rnns[0]
+    assert rnn.compute_dtype == torch.bfloat16 and \
+        rnn.weight_hh_l0.dtype == torch.float32
+    jm = JaxTrainer(json.loads(json.dumps(conf)))._build_model(80, 12)
+    variables = jax.tree.map(jnp.asarray, export_params(model))
+    x, lens = inputs(seed=4)
+
+    def f(params):
+        out = jm.apply(dict(variables, params=params), jnp.asarray(x),
+                       jnp.asarray(lens), jnp.asarray(TEXT),
+                       jnp.asarray(TEXT_LENS), deterministic=True)
+        return out['loss'], out
+    (_, want), grads = jax.jit(jax.value_and_grad(f, has_aux=True))(
+        variables['params'])
+    want_norm = float(jnp.sqrt(sum(jnp.sum(jnp.square(g.astype(jnp.float32)))
+                                   for g in jax.tree.leaves(grads))))
+    state = create_train_state(model, dict(conf['optimizer_conf']),
+                               float(conf['train_conf']['grad_clip']))
+    batch = {'speech': torch.from_numpy(x)[None],
+             'speech_lens': torch.from_numpy(lens)[None],
+             'text': torch.from_numpy(TEXT).long()[None],
+             'text_lens': torch.from_numpy(TEXT_LENS)[None]}
+    metrics = make_train_step(1, deterministic=True)(state, batch, 0)
+    for k in ('loss', 'loss_ctc'):
+        assert metrics[k].item() == pytest.approx(
+            float(want[k]), rel=tf.BF16_LOSS_RTOL), k
+    assert metrics['grad_norm'].item() == pytest.approx(
+        want_norm, rel=tf.BF16_GRAD_NORM_RTOL)
+    assert state.step == 1 and rnn.weight_hh_l0.dtype == torch.float32
