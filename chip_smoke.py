@@ -129,7 +129,32 @@ is not 0:
    device-frontend ``predict_batch`` (one B1 launch) and ``predict_stream``
    (one per window), CTC log-probs of B1's features within 1e-3 of the
    host features';
-15. timing, after the paths, whose real-time factors are thus read
+15. deploy (tests/fixtures/torch_deploy.npz and its tolerances in
+   tests/make_torch_deploy_fixture.py): int8: the committed flagship
+   quantized by ``utils/quant``, its dequantized weights bit-equal to the
+   JAX package's (the fixture's sha256), ``model.msgpack`` against
+   ``model_quant.msgpack`` bytes, and ``PPASRPredictor`` from the int8
+   file alone on the device frontend: ``predict`` and ``predict_stream``
+   texts equal the JAX ones from its own int8 file, one fbank launch per
+   window; programs: ``PPASRTrainer.export(save_stablehlo=True)`` of the
+   flagship at full width on the card (CPU and card programs),
+   ``InferencePredictor`` serving them with no model code on the
+   utterances' host features, offline and in 67-frame chunks: posteriors
+   within ``PROGRAM_TOL`` of the model code on the card, greedy texts
+   equal JAX's; the other three families' card programs at full width
+   (the zoo fixture's seeds) against their model code; export seconds,
+   ``.pt2`` sizes and wall per call beside the model code's; server:
+   ``infer_server.main`` in this process on free localhost ports (the
+   flagship, ``use_gpu``, the device frontend): ``POST /recognition`` per
+   utterance and ``/recognition_long_audio`` give the JAX ``predict`` and
+   ``predict_long`` texts, ``GET /`` the client page, three concurrent
+   WebSocket streams in 0.16 s pieces the JAX engine texts (a real client
+   when ``websockets`` imports, else ``ws_handler`` through an in-process
+   connection, as printed); the long recording's batch is B1's one launch
+   (the engine featurizes on the host, as JAX's does); wall per request
+   and per streamed piece; ``VADModel``: the fixture's seeded weights on
+   the card, probabilities within ``VAD_TOL`` of JAX's;
+16. timing, after the paths, whose real-time factors are thus read
    before the process first runs the profiler: at each shape of phase 3,
    three rounds time in turn the kernel, the plain version,
    ``torch.fft.rfft`` alone on the same frames, and the kernel again, each
@@ -137,7 +162,7 @@ is not 0:
    included) and the kernel and ``rfft`` also on the device alone
    (``device_ms``, from ``torch.profiler`` recording CUDA activity only);
    and the bound. The kernel table's ``ms`` is ``call_ms`` at the window,
-   its ``launches`` the launches of phases 4, 5, 8–11, 13 and 14 (one
+   its ``launches`` the launches of phases 4, 5, 8–11, 13, 14 and 15 (one
    per streamed window, one per batch) and 12 and 13 (one per micro-batch
    of the training path), and its ``max_abs_err`` the largest of phases 3
    and 5.
@@ -147,6 +172,10 @@ the one before it the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Everything written goes under
 ``build/`` (listed in .gitignore).
 """
+import asyncio
+import http.client as http_client
+import importlib.util
+import io
 import json
 import os
 import shutil
@@ -155,6 +184,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import wave
 
 import numpy as np
 import torch
@@ -166,12 +196,16 @@ from ppasr_tpu_torch import create_data as create_data_cli
 from ppasr_tpu_torch import eval as eval_cli
 from ppasr_tpu_torch import export_model as export_cli
 from ppasr_tpu_torch import extract_features as extract_features_cli
+from ppasr_tpu_torch import infer_server
 from ppasr_tpu_torch import train as train_cli
 from ppasr_tpu_torch.config import load_config
 from ppasr_tpu_torch.data.audio import AudioSegment
 from ppasr_tpu_torch.data.dataset import collate_raw_fn
 from ppasr_tpu_torch.decoders.beam_search_torch import all_hypotheses
 from ppasr_tpu_torch.decoders.greedy import _collapse
+from ppasr_tpu_torch.infer_utils.inference_predictor import InferencePredictor
+from ppasr_tpu_torch.infer_utils.torch_export import export_programs
+from ppasr_tpu_torch.infer_utils.vad_predictor import VADModel
 from ppasr_tpu_torch.models.factory import build_model
 from ppasr_tpu_torch.models.streaming_eval import streaming_greedy_batch
 from ppasr_tpu_torch.ops import fbank as F
@@ -183,11 +217,14 @@ from ppasr_tpu_torch.serving import StreamingBatchEngine
 from ppasr_tpu_torch.train_state import create_train_state, make_train_step
 from ppasr_tpu_torch.trainer import PPASRTrainer
 from ppasr_tpu_torch.utils.checkpoint import (convert_params, load_msgpack,
+                                              save_msgpack,
                                               write_inference_artifact)
 from ppasr_tpu_torch.utils.metrics import cer, edit_distance
+from ppasr_tpu_torch.utils.quant import dequantize_params, quantize_params
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, 'tests'))
+import make_torch_deploy_fixture as dfx  # noqa: E402  (no JAX at import)
 import make_torch_recipe_fixture as rf  # noqa: E402  (no JAX at import)
 import make_torch_smoke_fixture as fx  # noqa: E402  (no JAX at import)
 import make_torch_train_fixture as tf  # noqa: E402  (no JAX at import)
@@ -438,7 +475,7 @@ def check_kernel(dev):
 
 
 def time_kernel(shapes):
-    """Phase 15: the timings of every shape of phase 3, beside its bound;
+    """Phase 16: the timings of every shape of phase 3, beside its bound;
     returns the table entry."""
     rows = []
     for case in shapes:
@@ -1761,6 +1798,339 @@ def recipe_path(card, dev):
     return launches
 
 
+# ----------------------------------------------------------------- deploy
+
+def pt2_sizes(directory):
+    return {f: os.path.getsize(os.path.join(directory, f))
+            for f in sorted(os.listdir(directory)) if f.endswith('.pt2')}
+
+
+def deploy_int8(card, ddata, pcms):
+    """Deploy phase, int8: the committed flagship quantized by the port,
+    its dequantized weights bit-equal to the JAX package's (the fixture's
+    digest), served alone from ``model_quant.msgpack`` on the device
+    frontend; texts equal JAX's from its own int8 file. Returns B1's
+    launches (one per streamed window)."""
+    tree = load_msgpack(dfx.FLAGSHIP)
+    blob, q_s = timed(lambda: quantize_params(tree))
+    digest = dfx.quant_digest(dequantize_params(blob))
+    if digest != str(ddata['jax_quant_digest']):
+        raise AssertionError(f"dequantized flagship {digest} is not the "
+                             f"JAX package's {ddata['jax_quant_digest']}")
+    qdir = dfx.quant_artifact(os.path.join(BUILD, 'deploy_int8'),
+                              lambda p: save_msgpack(p, blob))
+    full = os.path.getsize(dfx.FLAGSHIP)
+    small = os.path.getsize(os.path.join(qdir, 'model_quant.msgpack'))
+    pred, build_s = timed(lambda: PPASRPredictor(
+        model_path=qdir, use_gpu=True, use_device_frontend=True))
+    before = fbank_cuda.launches
+    offline, off_s = timed(lambda: [pred.predict(p)['text'] for p in pcms])
+    stream, stream_s = timed(lambda: [fx.stream_text(pred, p)
+                                      for p in pcms])
+    launches = fbank_cuda.launches - before
+    windows = stream_windows(pred, pcms)
+    print(f"  int8: quantized in {q_s:.2f} s, dequantized weights equal "
+          f"JAX's (sha256 {digest[:16]}); model.msgpack {full} B, "
+          f"model_quant.msgpack {small} B ({full / small:.3f}x smaller); "
+          f"predictor from the int8 file alone built in {build_s:.2f} s",
+          flush=True)
+    print(f"  on {card}: int8 predict {offline} ({off_s / 3 * 1e3:.1f} ms "
+          f"per utterance), predict_stream {stream} "
+          f"({stream_s / windows * 1e3:.2f} ms per window over {windows} "
+          f"windows); fbank launches {launches}", flush=True)
+    expect('int8 predict', offline, ddata, 'jax_quant_offline')
+    expect('int8 predict_stream', stream, ddata, 'jax_quant_stream')
+    if launches != windows:
+        raise AssertionError(f"int8 stream: {launches} fbank launches for "
+                             f"{windows} windows")
+    return launches
+
+
+def program_texts(infer, feats, vocab):
+    """(offline texts, 67-frame chunk texts, [offline posteriors], [chunk
+    posteriors], offline seconds, chunk seconds, chunks) of an
+    ``InferencePredictor`` on host features."""
+    offline, chunks, off_p, chunk_p = [], [], [], []
+    off_s = chunk_s = 0.0
+    n_chunks = 0
+    for feat in feats:
+        (probs, olens), s = timed(lambda: infer.predict(
+            feat[None], np.array([feat.shape[0]])))
+        off_s += s
+        off_p.append(probs[0, :int(olens[0])])
+        offline.append(greedy_module.greedy_decoder(off_p[-1], vocab)[1])
+        infer.reset_stream()
+        windows = dfx.chunk_windows(feat)
+        posts, s = timed(lambda: [infer.predict_chunk_conformer(w)[0]
+                                  for w in windows])
+        chunk_s += s
+        n_chunks += len(windows)
+        chunk_p.append(np.concatenate(posts))
+        chunks.append(greedy_module.greedy_decoder(chunk_p[-1], vocab)[1])
+    return offline, chunks, off_p, chunk_p, off_s, chunk_s, n_chunks
+
+
+def deploy_programs(card, ddata, pred, pcms):
+    """Deploy phase, programs: ``PPASRTrainer.export(save_stablehlo=True)``
+    of the flagship at full width on the card, served by
+    ``InferencePredictor`` with no model code on the utterances' host
+    features, offline and in 67-frame chunks: posteriors within
+    ``dfx.PROGRAM_TOL`` of the model code on the card (TF32 off) and
+    greedy texts equal to the fixture's JAX ones; then the other three
+    families' programs from the zoo fixture's seeds, each against its
+    model code."""
+    trainer = PPASRTrainer(os.path.join(ROOT, 'configs', 'campaign',
+                                        'conformer_synth.yml'), use_gpu=True)
+    infer, export_s = timed(lambda: trainer.export(
+        save_model_path=os.path.join(BUILD, 'deploy_models'),
+        resume_model=os.path.dirname(dfx.FLAGSHIP), save_stablehlo=True))
+    sizes = pt2_sizes(infer)
+    prog, load_s = timed(lambda: InferencePredictor(infer, use_gpu=True))
+    code = InferencePredictor(infer, os.path.join(infer, 'mean_istd.json'),
+                              use_gpu=True, use_stablehlo=False)
+    if not (prog.stablehlo and prog.model is None and not code.stablehlo):
+        raise AssertionError("the exported programs were not served")
+    feats = [pred.audio_featurizer.featurize(pred._load_audio(p))
+             for p in pcms]
+    got = program_texts(prog, feats, pred.vocab_list)
+    want = program_texts(code, feats, pred.vocab_list)
+    err = max(float(np.abs(a - b).max()) for a, b in
+              zip(got[2] + got[3], want[2] + want[3]))
+    print(f"  programs: flagship exported in {export_s:.2f} s (CPU and card "
+          f"programs, with model.msgpack), sizes {sizes} B; served in "
+          f"{load_s:.2f} s with no model code", flush=True)
+    print(f"  on {card}: program texts offline {got[0]}, chunks {got[1]}; "
+          f"max |Δ posterior| against the model code {err:.3g} (tolerance "
+          f"{dfx.PROGRAM_TOL}); wall per utterance offline "
+          f"{got[4] / 3 * 1e3:.2f} ms (model code {want[4] / 3 * 1e3:.2f}), "
+          f"per chunk {got[5] / got[6] * 1e3:.3f} ms (model code "
+          f"{want[5] / want[6] * 1e3:.3f}) over {got[6]} chunks",
+          flush=True)
+    expect('program offline', got[0], ddata, 'jax_program_offline')
+    expect('program chunks', got[1], ddata, 'jax_program_chunks')
+    if not err <= dfx.PROGRAM_TOL:
+        raise AssertionError(f"program posteriors differ from the model "
+                             f"code by {err}")
+    del prog, code
+    rng = np.random.default_rng(0)
+    for use_model in zf.FAMILIES:
+        art = os.path.join(BUILD, f'zoo_{use_model}')
+        if not os.path.exists(os.path.join(art, 'inference.json')):
+            zf.zoo_artifact(use_model, art)
+        code = InferencePredictor(art, os.path.join(art, 'mean_istd.json'),
+                                  use_gpu=True, use_stablehlo=False)
+        _, export_s = timed(lambda: export_programs(
+            code.model, art, use_model, code.input_dim, devices=('cuda',)))
+        prog = InferencePredictor(art, use_gpu=True)
+        x = (0.5 * rng.standard_normal((2, 400, code.input_dim))).astype(
+            np.float32)
+        lens = np.array([400, 333])
+        (p1, l1), s1 = timed(lambda: prog.predict(x, lens))
+        (p2, l2), s2 = timed(lambda: code.predict(x, lens))
+        w = x[:1, :67]
+        ds2 = use_model == 'deepspeech2'
+        step = (lambda p: p.predict_chunk_deepspeech(w)) if ds2 else \
+            (lambda p: p.predict_chunk_conformer(w))
+        c1, c2 = step(prog), step(code)
+        err = max(float(np.abs(p1[i, :n] - p2[i, :n]).max())
+                  for i, n in enumerate(l1))
+        err = max(err, float(np.abs(c1 - c2).max()))
+        print(f"  {use_model}: exported in {export_s:.2f} s, sizes "
+              f"{pt2_sizes(art)} B; max |Δ posterior| against the model "
+              f"code {err:.3g}; offline batch of 2 × 400 frames "
+              f"{s1 * 1e3:.2f} ms (model code {s2 * 1e3:.2f} ms)",
+              flush=True)
+        if not (prog.stablehlo and np.array_equal(l1, l2)
+                and err <= dfx.PROGRAM_TOL):
+            raise AssertionError(f"{use_model} programs differ from the "
+                                 f"model code by {err}")
+
+
+class InProcessConnection:
+    """A WebSocket stand-in for ``ws_handler``: the given messages in, one
+    at a time with a yield between them, what is sent kept."""
+
+    def __init__(self, messages):
+        self.messages, self.sent = list(messages), []
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self):
+        await asyncio.sleep(0)
+        if not self.messages:
+            raise StopAsyncIteration
+        return self.messages.pop(0)
+
+    async def send(self, text):
+        self.sent.append(json.loads(text))
+
+
+def wav_bytes(pcm):
+    buf = io.BytesIO()
+    with wave.open(buf, 'wb') as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(np.asarray(pcm).astype('<i2').tobytes())
+    return buf.getvalue()
+
+
+def http(port, method, path, body=None):
+    conn = http_client.HTTPConnection('127.0.0.1', port, timeout=300)
+    conn.request(method, path, body=body,
+                 headers={'Content-Type': 'audio/wav'} if body else {})
+    resp = conn.getresponse()
+    out = resp.status, resp.read()
+    conn.close()
+    return out
+
+
+def ws_messages(pcm, piece):
+    return [pcm[i:i + piece].astype('<i2').tobytes()
+            for i in range(0, len(pcm), piece)] + [b'end']
+
+
+async def ws_client(port, messages):
+    """A real WebSocket client: each message sent, its answer read; →
+    (the answers, seconds per message)."""
+    import websockets
+    answers = []
+    async with websockets.connect(f'ws://127.0.0.1:{port}',
+                                  max_size=None) as ws:
+        t0 = time.time()
+        for m in messages:
+            await ws.send(m)
+            answers.append(json.loads(await ws.recv()))
+        return answers, (time.time() - t0) / len(messages)
+
+
+def deploy_server(card, data, artifact, pcms):
+    """Deploy phase, server: ``infer_server.main`` in this process on free
+    localhost ports with the flagship, ``use_gpu`` and the device frontend:
+    ``POST /recognition`` per utterance and ``/recognition_long_audio`` on
+    the long recording give the JAX ``predict`` / ``predict_long`` texts,
+    ``GET /`` the client page, three concurrent WebSocket streams in 0.16 s
+    pieces the JAX engine texts (through a real client when ``websockets``
+    imports, else through ``InProcessConnection``). Returns B1's launches
+    (the long recording's batch: the engine featurizes on the host, as the
+    JAX engine does)."""
+    have_ws = importlib.util.find_spec('websockets') is not None
+    piece = int(data['piece'])
+    server = infer_server.main(
+        ['--configs', os.path.join(ROOT, 'configs', 'campaign',
+                                   'conformer_synth.yml'),
+         '--model_path', artifact, '--decoder', 'ctc_greedy',
+         '--use_gpu', 'True', '--use_device_frontend', 'True',
+         '--host', '127.0.0.1', '--port', '0', '--ws_port', '0',
+         '--max_streams', '4',
+         '--save_audio_dir', os.path.join(BUILD, 'deploy_uploads')],
+        block=False, websocket=have_ws)
+    try:
+        before = fbank_cuda.launches
+        port = server.http_port
+        texts, walls = [], []
+        for pcm in pcms:
+            (status, body), s = timed(lambda: http(port, 'POST',
+                                                   '/recognition',
+                                                   wav_bytes(pcm)))
+            reply = json.loads(body)
+            if status != 200 or reply['code'] != 0:
+                raise AssertionError(f"/recognition answered {status} "
+                                     f"{reply}")
+            texts.append(reply['result'])
+            walls.append(s)
+        (status, body), long_s = timed(lambda: http(
+            port, 'POST', '/recognition_long_audio',
+            wav_bytes(fx.long_recording(pcms))))
+        long_text = json.loads(body)['result']
+        status_get, page = http(port, 'GET', '/')
+        with open(os.path.join(ROOT, 'templates', 'index.html'), 'rb') as f:
+            page_ok = status_get == 200 and page == f.read()
+        messages = [ws_messages(p, piece) for p in pcms]
+        t0 = time.time()
+        if have_ws:
+            async def clients():
+                return await asyncio.gather(*[
+                    ws_client(server.ws_port, m) for m in messages])
+            runs = asyncio.run(clients())
+            answers = [a for a, _ in runs]
+            per_msg = [s for _, s in runs]
+        else:
+            conns = [InProcessConnection(m) for m in messages]
+
+            async def handlers():
+                await asyncio.gather(*[server.ws_handler(c) for c in conns])
+            asyncio.run(handlers())
+            answers = [c.sent for c in conns]
+            per_msg = [None] * 3
+        ws_s = time.time() - t0
+        launches = fbank_cuda.launches - before
+        ws_texts = [a[-1]['result'] for a in answers]
+    finally:
+        server.stop()
+    n_windows = sum(len(m) - 1 for m in messages)
+    side = 'a websockets client over localhost' if have_ws else \
+        'ws_handler with an in-process connection (websockets is absent)'
+    print(f"  server: the stream side through {side}", flush=True)
+    print(f"  on {card}: /recognition {texts}, "
+          f"{statistics.mean(walls) * 1e3:.1f} ms per request; "
+          f"/recognition_long_audio {long_text!r} in {long_s * 1e3:.1f} ms; "
+          f"GET / serves index.html {page_ok}; WebSocket {ws_texts}, "
+          f"3 concurrent streams of {n_windows} pieces of 0.16 s in "
+          f"{ws_s:.3f} s, {ws_s / n_windows * 1e3:.2f} ms per piece "
+          f"(per stream {per_msg}); fbank launches {launches}", flush=True)
+    expect('server /recognition', texts, data, 'jax_offline')
+    expect('server WebSocket', ws_texts, data, 'jax_engine')
+    if long_text != str(data['jax_long']) or not page_ok:
+        raise AssertionError(f"server long audio {long_text!r} != "
+                             f"{data['jax_long']} or GET / failed")
+    if any(a['code'] != 0 for run in answers for a in run):
+        raise AssertionError("a WebSocket answer had a code other than 0")
+    if launches != 1:
+        raise AssertionError(f"{launches} fbank launches for the long "
+                             f"recording's one batch")
+    return launches
+
+
+def deploy_vad(card, ddata):
+    """Deploy phase, ``VADModel``: the fixture's seeded weights on the
+    card, two stateful calls, probabilities within ``dfx.VAD_TOL`` of the
+    JAX package's."""
+    vdir = dfx.write_vad_model(os.path.join(BUILD, 'deploy_vad'),
+                               save_msgpack, int(ddata['vad_seed']))
+    model = VADModel(vdir, device='cuda:0')
+    first, second = dfx.vad_windows(int(ddata['vad_windows_seed']))
+    probs, s = timed(lambda: np.concatenate([model(first), model(second)]))
+    err = float(np.abs(probs - ddata['jax_vad_probs']).max())
+    on_card = all(p.is_cuda for p in model.net.parameters())
+    print(f"  on {card}: VADModel on the card {on_card}, {len(probs)} "
+          f"windows in {s * 1e3:.2f} ms, max |Δ probability| against JAX "
+          f"{err:.3g} (tolerance {dfx.VAD_TOL})", flush=True)
+    if not (on_card and err < dfx.VAD_TOL):
+        raise AssertionError(f"VADModel differs from JAX's by {err}")
+
+
+def deploy_path(card, pred, artifact, data, pcms):
+    """Phase 15: the deployment path (``deploy_int8``,
+    ``deploy_programs``, ``deploy_server``, ``deploy_vad``). Returns B1's
+    launches."""
+    ddata = np.load(dfx.OUT)
+    t0 = time.time()
+    launches = deploy_int8(card, ddata, pcms)
+    print(f"  int8: {time.time() - t0:.2f} s", flush=True)
+    t0 = time.time()
+    deploy_programs(card, ddata, pred, pcms)
+    print(f"  programs: {time.time() - t0:.2f} s", flush=True)
+    t0 = time.time()
+    launches += deploy_server(card, data, artifact, pcms)
+    print(f"  server: {time.time() - t0:.2f} s", flush=True)
+    t0 = time.time()
+    deploy_vad(card, ddata)
+    print(f"  VADModel: {time.time() - t0:.2f} s", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1839,6 +2209,10 @@ def main():
     t0 = time.time()
     launches += recipe_path(card, dev)
     phase('recipe', t0)
+
+    t0 = time.time()
+    launches += deploy_path(card, pred, artifact, data, pcms)
+    phase('deploy', t0)
 
     t0 = time.time()
     entry = time_kernel(shapes)

@@ -21,7 +21,11 @@ dither, SpecAugment, SpecSub), AdamW with its schedules, gradient
 accumulation and bf16 over float32 parameters, for all four model
 families; and the rest of the recipe: ``python -m ppasr_tpu_torch.
 create_data``, ``extract_features``, ``eval`` (every decoder), ``tune`` and
-``export_model``. See ROADMAP.md for what is still to come.
+``export_model``; the deployment path: int8 artifacts (``utils/quant``),
+``torch.export`` programs served without model code
+(``infer_utils/torch_export``, ``infer_utils/inference_predictor``) and
+the HTTP + WebSocket server (``python -m ppasr_tpu_torch.infer_server``).
+See ROADMAP.md for what is still to come.
 """
 
 __version__ = "0.1.0"

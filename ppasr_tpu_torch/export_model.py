@@ -5,7 +5,10 @@ repository's export_model.py):
         --save_model_path models/ [--resume_model models/<name>/best_model]
 
 Writes ``<save_model_path>/<name>/infer`` (``PPASRTrainer.export``), which
-``PPASRPredictor(model_path=...)`` of either package loads. Runs on
+``PPASRPredictor(model_path=...)`` of either package loads; with
+``--save_quant True`` also the int8 ``model_quant.msgpack``, with
+``--save_stablehlo True`` the ``torch.export`` programs that
+``infer_utils.inference_predictor.InferencePredictor`` serves. Runs on
 ``cuda:0`` unless ``--use_gpu False``.
 """
 import argparse
@@ -24,11 +27,10 @@ def parse_args(argv=None):
     add_arg('resume_model', str, None,
             'checkpoint dir (default: last_model)')
     add_arg('save_quant', bool, False,
-            'also write an int8-quantized artifact (not ported yet: '
-            'ROADMAP Queue A, item 3)')
+            'also write model_quant.msgpack, the int8 weights')
     add_arg('save_stablehlo', bool, False,
-            'also serialize the offline and chunk programs (not '
-            'ported yet: ROADMAP Queue A, item 3)')
+            'also write the offline and chunk programs (torch.export: '
+            'offline.pt2, chunk.pt2; *.cuda.pt2 on the card)')
     add_arg('overwrites', str, None, 'config overrides')
     return parser.parse_args(argv)
 

@@ -11,17 +11,83 @@ arrive; ``reset_states`` clears both.
 Scoring: the Silero VAD v3 weights (``model_dir/silero_vad_v3.npz``, else
 the file committed as ``ppasr_tpu/assets/silero_vad_v3.npz``, read by path)
 through ``infer_utils/silero.py`` on ``device``; without such a file, the
-log-RMS energy of each window against a running noise floor. A weight file
-that exists but fails to load raises (the JAX predictor falls back to the
-next scorer). The JAX package's own conv+LSTM ``VADModel`` for a
-``vad_model.msgpack`` is not ported yet (ROADMAP Queue A, item 5): such a
-file, with no Silero weights beside it, raises.
+log-RMS energy of each window against a running noise floor; between the
+two, the JAX package's own conv+LSTM ``VADModel`` (:21-72) for a
+``model_dir/vad_model.msgpack`` with no Silero weights beside it. A weight
+file that exists but fails to load raises (the JAX predictor falls back to
+the next scorer).
 """
 import os
 
 import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
 
 from ppasr_tpu_torch.infer_utils.silero import SileroVAD
+from ppasr_tpu_torch.utils.checkpoint import convert_params, load_msgpack
+from ppasr_tpu_torch.utils.precision import ieee_float32
+
+
+class _VADNet(nn.Module):
+    """4 strided conv1d layers (16, 32, 48, 64 channels, kernel 5, strides
+    4, 4, 4, 2) with ReLU over a 512-sample window, a Dense(64), a
+    one-layer LSTM(64) over the windows, and Dense(1) + sigmoid."""
+    LAYERS = ((16, 4), (32, 4), (48, 4), (64, 2))
+
+    def __init__(self):
+        super().__init__()
+        ch = 1
+        for i, (feat, stride) in enumerate(self.LAYERS):
+            self.add_module(f'Conv_{i}', nn.Conv1d(ch, feat, 5, stride=stride))
+            ch = feat
+        self.Dense_0 = nn.Linear(4 * ch, 64)
+        self.cell = nn.LSTM(64, 64, batch_first=True)
+        self.Dense_1 = nn.Linear(64, 1)
+
+    def forward(self, windows, carry=None):
+        """[N, 512] windows of one stream, in order → ([N] probabilities,
+        the LSTM's (h, c) after the last)."""
+        h = windows[:, None, :]
+        for i, (_, stride) in enumerate(self.LAYERS):
+            # flax's 'SAME' with a stride: ⌈L/s⌉ outputs, the padding's
+            # smaller half before
+            n = h.shape[-1]
+            total = max((-(-n // stride) - 1) * stride + 5 - n, 0)
+            h = F.pad(h, (total // 2, total - total // 2))
+            h = F.relu(getattr(self, f'Conv_{i}')(h))
+        h = self.Dense_0(h.transpose(1, 2).reshape(h.shape[0], -1))
+        out, carry = self.cell(h[None], carry)
+        return torch.sigmoid(self.Dense_1(out[0]))[:, 0], carry
+
+
+class VADModel:
+    """The JAX package's Silero-style frame classifier (:21-72) from
+    ``model_dir/vad_model.msgpack`` on ``device``: the flax convs, Dense
+    layers and ``OptimizedLSTMCell`` map onto ``_VADNet`` as
+    ``utils/checkpoint.convert_params`` maps DeepSpeech2's cells. Stateful:
+    the LSTM's carry runs on across calls until ``reset``."""
+
+    def __init__(self, model_dir: str, device='cuda:0'):
+        tree = load_msgpack(os.path.join(model_dir, 'vad_model.msgpack'))
+        params = dict(tree['params'])
+        params['cell'] = {'cell': params.pop('OptimizedLSTMCell_0')}
+        self.device = torch.device(device)
+        self.net = _VADNet()
+        self.net.load_state_dict(convert_params(params), strict=True)
+        self.net.to(self.device).eval()
+        self._carry = None
+
+    def reset(self):
+        self._carry = None
+
+    @torch.inference_mode()
+    def __call__(self, windows: np.ndarray) -> np.ndarray:
+        """[N, 512] windows → [N] speech probabilities (stateful)."""
+        x = torch.from_numpy(np.ascontiguousarray(windows, np.float32))
+        with ieee_float32():
+            probs, self._carry = self.net(x.to(self.device), self._carry)
+        return probs.cpu().numpy()
 
 
 def packaged_silero_path() -> str:
@@ -46,9 +112,7 @@ class VADPredictor:
                                    else 8000, device=device)
         elif model_dir and os.path.exists(os.path.join(model_dir,
                                                        'vad_model.msgpack')):
-            raise NotImplementedError(
-                "vad_model.msgpack (the JAX package's VADModel) is not "
-                "ported yet (ROADMAP Queue A, item 5)")
+            self.model = VADModel(model_dir, device=device)
         self.reset_states()
 
     def reset_states(self):

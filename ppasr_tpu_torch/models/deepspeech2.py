@@ -43,6 +43,7 @@ from ppasr_tpu_torch.models.base import (GRU, LSTM, ASRModel, Conv2d,
                                          compute_dtype_of)
 from ppasr_tpu_torch.models.ctc import CTCHead
 from ppasr_tpu_torch.models.subsampling import flatten_nhwc
+from ppasr_tpu_torch.ops.rnn import run_rnn
 
 
 class DS2State(NamedTuple):
@@ -87,6 +88,7 @@ def _reverse_prefix(x, lens):
 
 
 class CRNNEncoder(nn.Module):
+    unpacked = False     # see ``_run``
     def __init__(self, input_dim: int, num_rnn_layers: int = 5,
                  rnn_size: int = 1024, use_gru: bool = False,
                  bidirectional: bool = False,
@@ -130,7 +132,17 @@ class CRNNEncoder(nn.Module):
         return compute_dtype_of(self.conv.Conv_0)
 
     def _run(self, rnn, x, lens, carry=None):
-        """(outputs [B, T, H] zero past each length, final carry)."""
+        """(outputs [B, T, H] zero past each length, final carry). With
+        ``unpacked`` set (``infer_utils/torch_export``, where the lengths
+        are not host integers) every row runs all T frames and its outputs
+        past its length are zeroed: the outputs are the packed run's, the
+        carry the one after frame T (the packed run's when every length is
+        T, as in the exported chunk step)."""
+        if self.unpacked:
+            y, carry = run_rnn(rnn, x, carry)
+            valid = torch.arange(x.shape[1], device=x.device)[None, :] \
+                < lens[:, None]
+            return y * valid[..., None].to(y.dtype), carry
         packed = pack_padded_sequence(x, lens.cpu(), batch_first=True,
                                       enforce_sorted=False)
         y, carry = rnn(packed, carry)

@@ -75,10 +75,24 @@ class Conv2dSubsampling2(_ConvSubsampling):
 def _pad_time(x, g):
     """x [B, T, ...] padded with zeros at the end of T to a multiple of g
     → (x, pad)."""
-    pad = (g - x.shape[1] % g) % g
-    if pad:
-        x = torch.cat([x, x.new_zeros(x.shape[0], pad, *x.shape[2:])], dim=1)
-    return x, pad
+    # ⌈T/g⌉·g − T with no branch on it: under a symbolic T (torch.export)
+    # the padded length stays the plain product ⌈T/g⌉·g
+    pad = (x.shape[1] + g - 1) // g * g - x.shape[1]
+    return F.pad(x, (0, 0) * (x.ndim - 2) + (0, pad)), pad
+
+
+def _every(x, dim: int, g: int):
+    """``x`` at every g-th index of ``dim`` (``x[..., ::g]``) as a fresh
+    tensor: a strided view's strides under a symbolic length make
+    torch.export guard on the length's residue."""
+    return x.index_select(dim, torch.arange(0, x.shape[dim], g,
+                                            device=x.device))
+
+
+def _first(x, dim: int, n: int):
+    """The first ``n`` indices of ``dim`` as a fresh tensor (see
+    ``_every``)."""
+    return x.index_select(dim, torch.arange(n, device=x.device))
 
 
 def _group(x, g):
@@ -130,7 +144,8 @@ class GroupedRelPositionAttention(nn.Module):
                                  pg.expand(b, -1, -1, -1))
         scores = (matrix_ac + matrix_bd) / math.sqrt(self.d_k * g)
         if mask is not None:
-            m = mask[:, ::g, ::g] if mask.shape[1] > 1 else mask[:, :, ::g]
+            m = _every(mask, 2, g)
+            m = _every(m, 1, g) if mask.shape[1] > 1 else m
             m = m[:, None, :, :scores.shape[-1]]
             scores = scores.masked_fill(~m, torch.finfo(scores.dtype).min / 2)
             attn = torch.softmax(scores, dim=-1).masked_fill(~m, 0.0)
@@ -140,8 +155,7 @@ class GroupedRelPositionAttention(nn.Module):
         t1g = x.shape[1]
         x = x.reshape(b, t1g, self.n_head, g, self.d_k) \
             .permute(0, 1, 3, 2, 4).reshape(b, t1g * g, self.n_feat)
-        if pad_q:
-            x = x[:, :x.shape[1] - pad_q]
+        x = _first(x, 1, x.shape[1] - pad_q)
         return self.linear_out(x), new_cache
 
 
@@ -189,12 +203,11 @@ def avg_pool_ceil(x, s: int):
     """AvgPool1d(s, ceil_mode=True) over the time axis of [B, T, D]: the
     last window averages the frames it has."""
     t = x.shape[1]
-    pad = (s - t % s) % s
-    if pad:
-        x = torch.cat([x, x.new_zeros(x.shape[0], pad, x.shape[2])], dim=1)
-    starts = torch.arange(0, x.shape[1], s, device=x.device)
+    tg = (t + s - 1) // s
+    x = F.pad(x, (0, 0, 0, tg * s - t))
+    starts = torch.arange(0, tg * s, s, device=x.device)
     denom = (torch.clamp(starts + s, max=t) - starts).clamp(min=1)
-    return x.reshape(x.shape[0], -1, s, x.shape[2]).sum(2) \
+    return x.reshape(x.shape[0], tg, s, x.shape[2]).sum(2) \
         / denom[None, :, None].to(x.dtype)
 
 

@@ -73,11 +73,9 @@ fails to load (JAX returns the text unpunctuated), an unknown
 tries WeTextProcessing first. Punctuation and ITN apply on the device
 frontend's stream too (the JAX device-frontend stream drops them).
 """
-import contextlib
 import json
 import math
 import os
-import threading
 
 import numpy as np
 import torch
@@ -96,48 +94,13 @@ from ppasr_tpu_torch.infer_utils.pun_predictor import PunctuationPredictor
 from ppasr_tpu_torch.infer_utils.vad_predictor import VADPredictor
 from ppasr_tpu_torch.models.factory import build_model
 from ppasr_tpu_torch.ops.fbank_cuda import fbank_batch, fbank_window
-from ppasr_tpu_torch.utils.checkpoint import convert_params, load_msgpack
+from ppasr_tpu_torch.utils.checkpoint import (convert_params,
+                                              load_inference_params)
 from ppasr_tpu_torch.utils.itn import inverse_normalize
 from ppasr_tpu_torch.utils.logger import setup_logger
+from ppasr_tpu_torch.utils.precision import ieee_float32  # noqa: F401
 
 logger = setup_logger(__name__)
-
-
-_tf32_lock = threading.Lock()
-_tf32_callers = 0
-_tf32_saved = None
-
-
-@contextlib.contextmanager
-def ieee_float32():
-    """TF32 off for matmuls and cuDNN, and cuBLAS's reduced-precision bf16
-    reductions off, while any caller, in any thread, is inside the block;
-    the process' flags restored when the last one leaves. The first to
-    enter saves the flags, the last to leave restores them, so a caller
-    leaving never turns them back on under another still inside. PyTorch
-    lets cuDNN use TF32 by default, which would run the subsampling and
-    depthwise convolutions at a 10-bit mantissa, and lets cuBLAS reduce
-    bf16 products in bf16, where XLA accumulates them in float32. Sets the
-    same flags as ``torch.backends.cudnn.flags`` and
-    ``torch.backends.cuda.matmul``."""
-    global _tf32_callers, _tf32_saved
-    matmul = torch.backends.cuda.matmul
-    with _tf32_lock:
-        if _tf32_callers == 0:
-            _tf32_saved = (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-                           matmul.allow_bf16_reduced_precision_reduction)
-            matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            matmul.allow_bf16_reduced_precision_reduction = False
-        _tf32_callers += 1
-    try:
-        yield
-    finally:
-        with _tf32_lock:
-            _tf32_callers -= 1
-            if _tf32_callers == 0:
-                (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-                 matmul.allow_bf16_reduced_precision_reduction) = _tf32_saved
 
 
 def _batch_bucket(n: int) -> int:
@@ -162,7 +125,8 @@ class PPASRPredictor:
                  compute_dtype: str = 'float32',
                  use_device_frontend: bool = False):
         """Same signature as the JAX predictor (ppasr_tpu/predict.py:43-53).
-        ``model_path``: exported directory with ``model.msgpack`` and
+        ``model_path``: exported directory with ``model.msgpack`` (else the
+        int8 ``model_quant.msgpack``, dequantized at load) and
         ``inference.json``. ``use_gpu``: run on ``cuda:0`` (raises without
         a card) or on the CPU. ``use_pun``: load the punctuation model now
         (from ``pun_model_dir``, else the committed artifact) rather than at
@@ -240,17 +204,13 @@ class PPASRPredictor:
             decoder_conf=infer_conf.get('decoder_conf'),
             model_conf=infer_conf.get('model_conf'),
             mean_istd_path=mean_istd_path)
-        full_path = os.path.join(model_path, 'model.msgpack')
-        if not os.path.exists(full_path):
-            raise FileNotFoundError(f"no model.msgpack in {model_path} (the "
-                                    f"int8 artifact is not ported yet: "
-                                    f"ROADMAP Queue A, item 3)")
-        state_dict = convert_params(load_msgpack(full_path))
+        tree, artifact = load_inference_params(model_path)
+        state_dict = convert_params(tree)
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
         self.model.set_compute_dtype(self.compute_dtype)
         logger.info(f"{self.use_model}: all {len(state_dict)} tensors of "
-                    f"model.msgpack loaded on {self.device}, computing in "
+                    f"{artifact} loaded on {self.device}, computing in "
                     f"{compute_dtype}")
 
         # chunk math (ppasr_tpu/predict.py:140-150)

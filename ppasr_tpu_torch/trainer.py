@@ -42,7 +42,9 @@ read 0 in the step's metrics, as in the JAX train step):
   score and reference are kept in ``eval_results``.
 - ``export`` (:874-932): ``infer/`` with ``model.msgpack``,
   ``inference.json``, ``mean_istd.json`` and the vocabulary, which both
-  packages' predictors load.
+  packages' predictors load; with ``save_quant`` the int8
+  ``model_quant.msgpack``, with ``save_stablehlo`` the ``torch.export``
+  programs that ``infer_utils/inference_predictor`` serves.
 - Checkpoints hold ``model.msgpack``, the flax tree that both packages
   read (``utils/checkpoint.export_params``), ``model.state`` and, unlike
   the JAX package's ``optimizer.msgpack``, the optimizer's state as
@@ -55,8 +57,7 @@ and the update count. No fallback: an unknown decoder, a beam decoder or
 rescorer that fails to build, and rescoring with DeepSpeech2 raise, where
 the JAX trainer decodes greedy; ``streaming_eval`` with DeepSpeech2
 raises, as in JAX. Left out: multi-process data parallelism (ROADMAP
-Queue A, item 1), the int8 and ``torch.export`` artifacts of ``export``
-(item 3), and ``pad_to_max``, one padded shape for a single compile,
+Queue A, item 1) and ``pad_to_max``, one padded shape for a single compile,
 which eager PyTorch does not need.
 """
 import json
@@ -81,6 +82,7 @@ from ppasr_tpu_torch.decoders.beam_search_torch import TorchBeamSearchDecoder
 from ppasr_tpu_torch.decoders.factory import build_decoder
 from ppasr_tpu_torch.decoders.greedy import _collapse, greedy_decoder_batch
 from ppasr_tpu_torch.decoders.rescoring import AttentionRescoringDecoder
+from ppasr_tpu_torch.infer_utils.torch_export import export_programs
 from ppasr_tpu_torch.models.factory import build_model
 from ppasr_tpu_torch.models.streaming_eval import (streaming_encode_batch,
                                                    streaming_greedy_batch)
@@ -92,11 +94,11 @@ from ppasr_tpu_torch.utils.checkpoint import (convert_params, export_params,
 from ppasr_tpu_torch.utils.common import dict_to_object, labels_to_string
 from ppasr_tpu_torch.utils.logger import setup_logger
 from ppasr_tpu_torch.utils.metrics import cer, wer
+from ppasr_tpu_torch.utils.quant import quantize_params
 
 logger = setup_logger(__name__)
 
 TRAIN_SEED = 1000
-NOT_PORTED = "is not ported yet (ROADMAP Queue A, item {})"
 
 
 class PPASRTrainer:
@@ -260,9 +262,10 @@ class PPASRTrainer:
             manifest_type=dataset_conf.get('manifest_type', 'txt'),
             augmentation_config=aug_conf, train=train, return_raw=return_raw)
 
-    def _build_model(self, input_dim, vocab_size):
+    def _build_model(self, input_dim, vocab_size, amp: bool = None):
         """The model on the trainer's device, float32 parameters; with
-        ``enable_amp`` computing in bf16 (cast at use)."""
+        ``amp`` (default: ``enable_amp``) computing in bf16 (cast at
+        use)."""
         model = build_model(
             self.use_model, input_dim, vocab_size, streaming=self.streaming,
             encoder_conf=dict(self.configs.get('encoder_conf', {}) or {}),
@@ -270,7 +273,9 @@ class PPASRTrainer:
             model_conf=dict(self.configs.get('model_conf', {}) or {}),
             mean_istd_path=self.configs.dataset_conf.mean_istd_path)
         model.to(self.device)
-        if self.configs.get('train_conf', {}).get('enable_amp', False):
+        if amp is None:
+            amp = self.configs.get('train_conf', {}).get('enable_amp', False)
+        if amp:
             model.set_compute_dtype(torch.bfloat16, at_use=True)
         return model
 
@@ -676,19 +681,21 @@ class PPASRTrainer:
         ``resume_model`` (default: ``last_model`` under
         ``save_model_path``): ``model.msgpack`` (the flax tree, which the
         JAX predictor reads too), ``inference.json`` and copies of
-        ``mean_istd.json`` and the vocabulary (:874-932). Returns the
-        directory."""
-        if save_quant:
-            raise NotImplementedError(
-                f"save_quant, the int8 weight-quantized artifact, "
-                f"{NOT_PORTED.format(3)}")
-        if save_stablehlo:
-            raise NotImplementedError(
-                f"save_stablehlo, the serialized offline and chunk programs "
-                f"(torch.export in the port), {NOT_PORTED.format(3)}")
+        ``mean_istd.json`` and the vocabulary (:874-932). ``save_quant``
+        also writes ``model_quant.msgpack``, the int8 weights of
+        ``utils/quant`` (:906-912), which both packages' predictors load
+        when ``model.msgpack`` is absent. ``save_stablehlo`` (the JAX
+        package's name) also writes the offline and chunk programs, here
+        ``torch.export``'s (``infer_utils/torch_export``: for the CPU, and
+        for the card when the trainer is on it), which
+        ``infer_utils/inference_predictor`` serves without model code
+        (:913-918); they compute in float32, as the predictors do, where
+        the JAX trainer traces them in bf16 under ``enable_amp``. Returns
+        the directory."""
         test_dataset = self._build_dataset(train=False)
+        # float32, as the predictors serve it, also under enable_amp
         model = self._build_model(test_dataset.feature_dim,
-                                  test_dataset.vocab_size)
+                                  test_dataset.vocab_size, amp=False)
         self._load_checkpoint(resume_model or save_model_path,
                               self._create_state(model), required=True)
         infer_dir = os.path.join(self._save_dir(save_model_path), 'infer')
@@ -698,8 +705,16 @@ class PPASRTrainer:
             if src and os.path.exists(src):
                 shutil.copy(src, os.path.join(infer_dir,
                                               os.path.basename(src)))
-        save_msgpack(os.path.join(infer_dir, 'model.msgpack'),
-                     export_params(model))
+        params = export_params(model)
+        save_msgpack(os.path.join(infer_dir, 'model.msgpack'), params)
+        if save_quant:
+            save_msgpack(os.path.join(infer_dir, 'model_quant.msgpack'),
+                         quantize_params(params))
+            logger.info("int8 weight-quantized artifact written")
+        if save_stablehlo:
+            paths = export_programs(model, infer_dir, self.use_model,
+                                    test_dataset.feature_dim)
+            logger.info(f"torch.export programs written: {paths}")
         with open(os.path.join(infer_dir, 'inference.json'), 'w',
                   encoding='utf-8') as f:
             json.dump({'use_model': self.use_model,

@@ -32,8 +32,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from ppasr_tpu_torch.models.base import BatchNorm
-
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 
 
@@ -154,6 +152,22 @@ def msgpack_restore(data: bytes):
 def load_msgpack(path: str):
     with open(path, 'rb') as f:
         return msgpack_restore(f.read())
+
+
+def load_inference_params(model_dir: str):
+    """An exported directory's flax tree → (tree, file name): its
+    ``model.msgpack``, else its int8 ``model_quant.msgpack`` dequantized to
+    float32 (``utils/quant``), as ppasr_tpu/predict.py:121-138 loads them;
+    neither raises ``FileNotFoundError``."""
+    from ppasr_tpu_torch.utils.quant import dequantize_params
+    for name in ('model.msgpack', 'model_quant.msgpack'):
+        path = os.path.join(model_dir, name)
+        if os.path.exists(path):
+            tree = load_msgpack(path)
+            return (tree if name == 'model.msgpack'
+                    else dequantize_params(tree)), name
+    raise FileNotFoundError(f"no model.msgpack / model_quant.msgpack in "
+                            f"{model_dir}")
 
 
 def _flatten(tree, prefix=()):
@@ -389,6 +403,7 @@ def save_msgpack(path: str, tree):
 
 def _flax_leaf(module: nn.Module, name: str, arr: np.ndarray):
     """(torch module, parameter name, array) → (flax leaf, array)."""
+    from ppasr_tpu_torch.models.base import BatchNorm
     if name in ('bias', 'pos_bias_u', 'pos_bias_v', 'ada_scale', 'ada_bias'):
         return name, arr
     if isinstance(module, (nn.LayerNorm, BatchNorm)):
@@ -421,6 +436,7 @@ def export_params(module: nn.Module) -> dict:
     ``Embedding.weight`` → ``embedding``, each ``nn.LSTM``/``nn.GRU`` → its
     flax ``cell`` (``_cell_from_rnn``), the BatchNorm running statistics →
     ``mean``/``var``."""
+    from ppasr_tpu_torch.models.base import BatchNorm
     modules = dict(module.named_modules())
     tree, stats = {}, {}
     for name, m in modules.items():

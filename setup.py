@@ -24,7 +24,8 @@ setup(
                  'on-device prefix beam-search decoding'),
     author='ppasr_tpu contributors',
     license='Apache License 2.0',
-    packages=find_packages(include=['ppasr_tpu', 'ppasr_tpu.*']),
+    packages=find_packages(include=['ppasr_tpu', 'ppasr_tpu.*',
+                                    'ppasr_tpu_torch', 'ppasr_tpu_torch.*']),
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'numpy', 'scipy', 'pyyaml',

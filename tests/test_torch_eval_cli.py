@@ -15,8 +15,9 @@ utterances (``make_torch_recipe_fixture``):
   CMVN; ``PPASRPredictor(use_gpu=False, model_path=infer)`` gives the
   texts of the trainer's greedy ``evaluate`` on the same audio, and the
   JAX predictor reads ``model.msgpack`` and gives them too;
-  ``--save_quant`` and ``--save_stablehlo`` raise, naming their ROADMAP
-  item; ``--help`` of every CLI runs without JAX.
+  ``--save_quant`` writes the int8 weights of the JAX quantization and
+  ``--save_stablehlo`` the programs that ``InferencePredictor`` serves;
+  ``--help`` of every CLI runs without JAX.
 """
 import json
 import os
@@ -164,12 +165,40 @@ def test_export_serves_in_both_predictors(workspace):
 
 
 @pytest.mark.parametrize('flag', ['--save_quant', '--save_stablehlo'])
-def test_export_options_not_ported_raise(workspace, flag):
-    root, _, overwrites = workspace
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue A, item 3'):
-        export_cli.main(['--configs', rf.STOCK_CONFIG, '--use_gpu', 'False',
-                         '--save_model_path', root, '--overwrites',
-                         overwrites, flag, 'True'])
+def test_export_options_not_ported_raise(workspace, tmp_path, flag):
+    """The two options, which raised while they were not ported, write
+    their artifacts: the int8 weights, bit-equal to the JAX package's
+    quantization of the exported weights, and the CPU programs, which
+    ``InferencePredictor`` serves with the model code's posteriors."""
+    root, ckpt, overwrites = workspace
+    infer = export_cli.main(['--configs', rf.STOCK_CONFIG, '--use_gpu',
+                             'False', '--save_model_path', str(tmp_path),
+                             '--resume_model', ckpt, '--overwrites',
+                             overwrites, flag, 'True'])
+    if flag == '--save_quant':
+        from ppasr_tpu.utils.quant import quantize_params
+        from ppasr_tpu_torch.utils.checkpoint import load_msgpack
+        got = load_msgpack(os.path.join(infer, 'model_quant.msgpack'))
+        want = quantize_params(load_msgpack(os.path.join(infer,
+                                                         'model.msgpack')))
+        for part in ('q', 's', 'raw'):
+            assert list(got[part]) == list(want[part])
+            assert all(got[part][k].tobytes() == want[part][k].tobytes()
+                       for k in want[part])
+        return
+    import numpy as np
+    from ppasr_tpu_torch.infer_utils.inference_predictor import \
+        InferencePredictor
+    assert {'offline.pt2', 'chunk.pt2'} <= set(os.listdir(infer))
+    prog = InferencePredictor(infer, use_gpu=False)
+    code = InferencePredictor(infer, os.path.join(infer, 'mean_istd.json'),
+                              use_gpu=False, use_stablehlo=False)
+    x = np.random.default_rng(0).standard_normal((1, 64, 80)).astype(
+        np.float32)
+    assert prog.stablehlo and not code.stablehlo
+    got, n = prog.predict(x, [64])
+    want, _ = code.predict(x, [64])
+    assert float(np.abs(got[0, :n[0]] - want[0, :n[0]]).max()) < 2e-6
 
 
 def test_help_of_every_cli_runs():

@@ -1,8 +1,8 @@
 """The port stands alone: ``ppasr_tpu_torch`` and ``chip_smoke.py`` import
 none of JAX, flax, the JAX package, msgpack, PyYAML, distutils or
 Levenshtein (the card's machine has torch, numpy and scipy, and Python 3.12
-has no distutils), and
-the predictor refuses ``use_gpu=True`` without a card. ``chip_smoke.py``
+has no distutils), the server imports ``websockets`` only when it starts,
+and the predictor refuses ``use_gpu=True`` without a card. ``chip_smoke.py``
 also imports the fixture helpers in tests/make_torch_smoke_fixture.py,
 tests/make_torch_train_fixture.py, tests/make_torch_zoo_fixture.py and
 tests/make_torch_recipe_fixture.py, whose JAX imports sit inside
@@ -83,13 +83,34 @@ def test_import_leaves_no_forbidden_module_loaded():
             "ppasr_tpu_torch.data.augmentor.feature_augmentors, "
             "ppasr_tpu_torch.create_data, ppasr_tpu_torch.extract_features, "
             "ppasr_tpu_torch.eval, ppasr_tpu_torch.tune, "
-            "ppasr_tpu_torch.export_model;"
-            f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
+            "ppasr_tpu_torch.export_model, ppasr_tpu_torch.utils.quant, "
+            "ppasr_tpu_torch.utils.precision, ppasr_tpu_torch.ops.rnn, "
+            "ppasr_tpu_torch.infer_utils.torch_export, "
+            "ppasr_tpu_torch.infer_utils.inference_predictor, "
+            "ppasr_tpu_torch.infer_server;"
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('websockets',)!r}))")
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == '[]', out.stdout
+
+
+def test_server_imports_websockets_only_when_it_starts():
+    """No record shows ``websockets`` on the card's machine: the server
+    imports it inside ``RecognitionServer.start``, never at the top."""
+    path = os.path.join(ROOT, 'ppasr_tpu_torch', 'infer_server.py')
+    with open(path, encoding='utf-8') as f:
+        tree = ast.parse(f.read(), path)
+    top = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            top.update(a.name.split('.')[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            top.add(node.module.split('.')[0])
+    assert 'websockets' not in top
+    assert 'websockets' in set(_imported_roots(path))
 
 
 def test_use_gpu_without_card_raises(tmp_path):

@@ -137,12 +137,12 @@ def test_weights_that_fail_to_load_raise(tmp_path, monkeypatch):
     (tmp_path / 'silero_vad_v3.npz').write_bytes(b'not an npz')
     with pytest.raises(ValueError):
         port_vad.VADPredictor(model_dir=str(tmp_path), device='cpu')
-    # the JAX package's own VADModel file, with no Silero weights: not
-    # ported, so it raises rather than falling back to the heuristic
+    # the JAX package's own VADModel file, with no Silero weights, that
+    # fails to load: it raises rather than falling back to the heuristic
     monkeypatch.setattr(port_vad, 'packaged_silero_path',
                         lambda: '/nonexistent/silero.npz')
     other = tmp_path / 'other'
     other.mkdir()
     (other / 'vad_model.msgpack').write_bytes(b'')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(ValueError, match='msgpack'):
         port_vad.VADPredictor(model_dir=str(other), device='cpu')

@@ -134,14 +134,17 @@ ZOO = {
 
 
 def write_zoo_artifact(out, use_model, seed=5):
-    """``write_artifact`` for a tiny ``use_model`` of ``ZOO``: the port
-    builds it, ``fill_weights`` draws its parameters and ``export_params``
-    writes them (``utils/checkpoint.save_msgpack``) for both packages."""
+    """``write_artifact`` for a tiny ``use_model`` of ``ZOO`` (or the
+    Conformer of ``ENC``/``DEC``): the port builds it, ``fill_weights``
+    draws its parameters and ``export_params`` writes them
+    (``utils/checkpoint.save_msgpack``) for both packages, with no flax
+    init."""
     from make_torch_zoo_fixture import fill_weights
     from ppasr_tpu_torch.models.factory import build_model
     from ppasr_tpu_torch.utils.checkpoint import export_params, save_msgpack
     write_vocab_and_cmvn(out)
-    enc, dec, model_conf = ZOO[use_model]
+    enc, dec, model_conf = dict(
+        ZOO, conformer=(ENC, DEC, {'ctc_weight': 0.3}))[use_model]
     model = build_model(use_model, D, len(VOCAB), streaming=True,
                         encoder_conf=enc, decoder_conf=dec,
                         model_conf=model_conf)
