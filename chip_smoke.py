@@ -148,9 +148,8 @@ is not 0:
    flagship, ``use_gpu``, the device frontend): ``POST /recognition`` per
    utterance and ``/recognition_long_audio`` give the JAX ``predict`` and
    ``predict_long`` texts, ``GET /`` the client page, three concurrent
-   WebSocket streams in 0.16 s pieces the JAX engine texts (a real client
-   when ``websockets`` imports, else ``ws_handler`` through an in-process
-   connection, as printed); the long recording's batch is B1's one launch
+   WebSocket clients over localhost in 0.16 s pieces the JAX engine texts;
+   the long recording's batch is B1's one launch
    (the engine featurizes on the host, as JAX's does); wall per request
    and per streamed piece; ``VADModel``: the fixture's seeded weights on
    the card, probabilities within ``VAD_TOL`` of JAX's;
@@ -174,7 +173,6 @@ the one before it the kernel table as JSON; the last line is
 """
 import asyncio
 import http.client as http_client
-import importlib.util
 import io
 import json
 import os
@@ -267,7 +265,7 @@ def call_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, launches_per_call, match=None, tries=3):
+def device_ms(fn, iters, launches_per_call, match=None, tries=10):
     """(device milliseconds per call of ``fn()``, launches recorded).
     ``torch.profiler``, recording CUDA activity only, over ``iters`` calls:
     the device time that ``key_averages()`` gives for the kernels whose name
@@ -1894,14 +1892,28 @@ def deploy_programs(card, ddata, pred, pcms):
              for p in pcms]
     got = program_texts(prog, feats, pred.vocab_list)
     want = program_texts(code, feats, pred.vocab_list)
-    err = max(float(np.abs(a - b).max()) for a, b in
-              zip(got[2] + got[3], want[2] + want[3]))
+    err_off, err_chunk = (max(float(np.abs(a - b).max())
+                              for a, b in zip(got[i], want[i]))
+                          for i in (2, 3))
+    err = max(err_off, err_chunk)
+    # the program pads T to its 16-frame grid, the model code does not:
+    # held again with the model code given the same padded input
+    err_same = 0.0
+    for f in feats:
+        t = max(32, -(-len(f) // 16) * 16)
+        fp = np.pad(f, ((0, t - len(f)), (0, 0)))[None]
+        (p1, l1), (p2, _) = (p.predict(fp, np.array([len(f)]))
+                             for p in (prog, code))
+        err_same = max(err_same,
+                       float(np.abs(p1[0, :l1[0]] - p2[0, :l1[0]]).max()))
     print(f"  programs: flagship exported in {export_s:.2f} s (CPU and card "
           f"programs, with model.msgpack), sizes {sizes} B; served in "
           f"{load_s:.2f} s with no model code", flush=True)
     print(f"  on {card}: program texts offline {got[0]}, chunks {got[1]}; "
           f"max |Δ posterior| against the model code {err:.3g} (tolerance "
-          f"{dfx.PROGRAM_TOL}); wall per utterance offline "
+          f"{dfx.PROGRAM_TOL}; offline {err_off:.3g}, chunks "
+          f"{err_chunk:.3g}; offline at the program's padded length "
+          f"{err_same:.3g}); wall per utterance offline "
           f"{got[4] / 3 * 1e3:.2f} ms (model code {want[4] / 3 * 1e3:.2f}), "
           f"per chunk {got[5] / got[6] * 1e3:.3f} ms (model code "
           f"{want[5] / want[6] * 1e3:.3f}) over {got[6]} chunks",
@@ -1944,26 +1956,6 @@ def deploy_programs(card, ddata, pred, pcms):
                 and err <= dfx.PROGRAM_TOL):
             raise AssertionError(f"{use_model} programs differ from the "
                                  f"model code by {err}")
-
-
-class InProcessConnection:
-    """A WebSocket stand-in for ``ws_handler``: the given messages in, one
-    at a time with a yield between them, what is sent kept."""
-
-    def __init__(self, messages):
-        self.messages, self.sent = list(messages), []
-
-    def __aiter__(self):
-        return self
-
-    async def __anext__(self):
-        await asyncio.sleep(0)
-        if not self.messages:
-            raise StopAsyncIteration
-        return self.messages.pop(0)
-
-    async def send(self, text):
-        self.sent.append(json.loads(text))
 
 
 def wav_bytes(pcm):
@@ -2011,11 +2003,10 @@ def deploy_server(card, data, artifact, pcms):
     ``POST /recognition`` per utterance and ``/recognition_long_audio`` on
     the long recording give the JAX ``predict`` / ``predict_long`` texts,
     ``GET /`` the client page, three concurrent WebSocket streams in 0.16 s
-    pieces the JAX engine texts (through a real client when ``websockets``
-    imports, else through ``InProcessConnection``). Returns B1's launches
+    pieces through ``websockets`` clients the JAX engine texts. Returns
+    B1's launches
     (the long recording's batch: the engine featurizes on the host, as the
     JAX engine does)."""
-    have_ws = importlib.util.find_spec('websockets') is not None
     piece = int(data['piece'])
     server = infer_server.main(
         ['--configs', os.path.join(ROOT, 'configs', 'campaign',
@@ -2025,7 +2016,7 @@ def deploy_server(card, data, artifact, pcms):
          '--host', '127.0.0.1', '--port', '0', '--ws_port', '0',
          '--max_streams', '4',
          '--save_audio_dir', os.path.join(BUILD, 'deploy_uploads')],
-        block=False, websocket=have_ws)
+        block=False)
     try:
         before = fbank_cuda.launches
         port = server.http_port
@@ -2049,30 +2040,19 @@ def deploy_server(card, data, artifact, pcms):
             page_ok = status_get == 200 and page == f.read()
         messages = [ws_messages(p, piece) for p in pcms]
         t0 = time.time()
-        if have_ws:
-            async def clients():
-                return await asyncio.gather(*[
-                    ws_client(server.ws_port, m) for m in messages])
-            runs = asyncio.run(clients())
-            answers = [a for a, _ in runs]
-            per_msg = [s for _, s in runs]
-        else:
-            conns = [InProcessConnection(m) for m in messages]
 
-            async def handlers():
-                await asyncio.gather(*[server.ws_handler(c) for c in conns])
-            asyncio.run(handlers())
-            answers = [c.sent for c in conns]
-            per_msg = [None] * 3
+        async def clients():
+            return await asyncio.gather(*[
+                ws_client(server.ws_port, m) for m in messages])
+        runs = asyncio.run(clients())
+        answers = [a for a, _ in runs]
+        per_msg = [s for _, s in runs]
         ws_s = time.time() - t0
         launches = fbank_cuda.launches - before
         ws_texts = [a[-1]['result'] for a in answers]
     finally:
         server.stop()
     n_windows = sum(len(m) - 1 for m in messages)
-    side = 'a websockets client over localhost' if have_ws else \
-        'ws_handler with an in-process connection (websockets is absent)'
-    print(f"  server: the stream side through {side}", flush=True)
     print(f"  on {card}: /recognition {texts}, "
           f"{statistics.mean(walls) * 1e3:.1f} ms per request; "
           f"/recognition_long_audio {long_text!r} in {long_s * 1e3:.1f} ms; "

@@ -236,10 +236,10 @@ class RecognitionServer:
 
     # -------------------------------------------------------------- lifecycle
 
-    def start(self, with_websocket: bool = True):
-        """Listen: HTTP in a thread, and (for a streaming model, with
-        ``with_websocket``) the WebSocket on an asyncio loop in another.
-        Returns when both are bound."""
+    def start(self):
+        """Listen: HTTP in a thread, and (for a streaming model) the
+        WebSocket on an asyncio loop in another. Returns when both are
+        bound."""
         self.httpd = ThreadingHTTPServer((self.args.host, self.args.port),
                                          Handler)
         self.httpd.daemon_threads = True
@@ -249,7 +249,7 @@ class RecognitionServer:
         logger.info(f"HTTP endpoints on http://{self.args.host}:"
                     f"{self.http_port} (/recognition, "
                     f"/recognition_long_audio)")
-        if self.engine is not None and with_websocket:
+        if self.engine is not None:
             import websockets
             bound = threading.Event()
             failed = []
@@ -298,14 +298,13 @@ class RecognitionServer:
             self._ws_thread = None
 
 
-def main(argv=None, block: bool = True, websocket: bool = True):
+def main(argv=None, block: bool = True):
     """Parse ``argv``, build the predictor and start the server; serve
     until interrupted, or with ``block=False`` return the started
-    ``RecognitionServer`` (``stop()`` ends it). ``websocket=False`` leaves
-    the stream side unbound, its ``ws_handler`` still callable."""
+    ``RecognitionServer`` (``stop()`` ends it)."""
     args = parse_args(argv)
     print_arguments(args=args)
-    server = RecognitionServer(args).start(with_websocket=websocket)
+    server = RecognitionServer(args).start()
     if not block:
         return server
     try:

@@ -106,7 +106,12 @@ class InferencePredictor:
                 model_conf=conf.get('model_conf'),
                 mean_istd_path=mean_istd_path)
             self.model.load_state_dict(state_dict, strict=True)
-            self.model.to(self.device).eval()
+            # frozen, as the programs' weights are: ``F.linear`` of a
+            # non-contiguous [B, T, D] input (the Squeezeformer's time
+            # reduction) goes through ``torch.matmul``, whose choice between
+            # one folded GEMM and a batched one looks at the weight's
+            # ``requires_grad``, and the two round differently
+            self.model.to(self.device).eval().requires_grad_(False)
             self._offline = self.model.get_encoder_out
             self._chunk = self.model.get_encoder_out_chunk
             if ds2:

@@ -50,25 +50,17 @@ def quantize_params(params: dict) -> dict:
     return {'q': q, 's': s, 'raw': raw}
 
 
-def dequantize_params(blob: dict, like_params: dict = None,
-                      dtype=np.float32) -> dict:
-    """The inverse of ``quantize_params``: ``q · s`` in ``dtype`` for the
-    quantized leaves, the raw ones cast to it. With ``like_params`` the
-    result follows its tree (a leaf missing from the blob raises
-    ``KeyError``); without, the tree is rebuilt from the paths."""
-    def leaf(key):
-        if key in blob['q']:
-            return blob['q'][key].astype(dtype) * blob['s'][key]
-        return np.asarray(blob['raw'][key]).astype(dtype)
-
-    keys = (['/'.join(p) for p, _ in _leaves(like_params)]
-            if like_params is not None
-            else sorted(list(blob['q']) + list(blob['raw'])))
+def dequantize_params(blob: dict) -> dict:
+    """The inverse of ``quantize_params``: ``q · s`` in float32 for the
+    quantized leaves, the raw ones cast to float32, in a tree rebuilt from
+    the paths."""
     out = {}
-    for key in keys:
+    for key in sorted(list(blob['q']) + list(blob['raw'])):
         node = out
         *parents, name = key.split('/')
         for p in parents:
             node = node.setdefault(p, {})
-        node[name] = leaf(key)
+        node[name] = (blob['q'][key].astype(np.float32) * blob['s'][key]
+                      if key in blob['q']
+                      else np.asarray(blob['raw'][key]).astype(np.float32))
     return out

@@ -54,10 +54,8 @@ PROGRAM_JAX_TOL = {'deepspeech2': 1e-4}
 # also for one full row)
 DS2_PACKED_TOL = 1e-4
 # against the port's model code on the CPU at the program's padded length
-# (DeepSpeech2's run unpacked): the same operations, but the program's
-# graph can reach other CPU kernels than the eager module at some shapes
-# (on one thread, the tiny Squeezeformer at batch 3 differs by 1.3e-6)
-PROGRAM_CODE_TOL = 2e-6
+# (DeepSpeech2's run unpacked): the same operations on the same layouts
+PROGRAM_CODE_TOL = 1e-6
 
 
 def quant_digest(tree) -> str:

@@ -198,7 +198,7 @@ def test_export_options_not_ported_raise(workspace, tmp_path, flag):
     assert prog.stablehlo and not code.stablehlo
     got, n = prog.predict(x, [64])
     want, _ = code.predict(x, [64])
-    assert float(np.abs(got[0, :n[0]] - want[0, :n[0]]).max()) < 2e-6
+    assert float(np.abs(got[0, :n[0]] - want[0, :n[0]]).max()) < 1e-6
 
 
 def test_help_of_every_cli_runs():

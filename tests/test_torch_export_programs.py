@@ -11,8 +11,8 @@ inference_predictor.py), for the four families at tiny widths on the CPU:
   unpadded input (other lengths, so sums in another order; DeepSpeech2's
   packed RNN multiplies rows in shrinking groups) within PROGRAM_TOL;
 - within PROGRAM_TOL of the JAX package's ``InferencePredictor`` on its
-  model code (``get_encoder_out`` at the program's padded length,
-  ``get_encoder_out_chunk``), as tests/test_stablehlo_export.py holds the
+  model code (``get_encoder_out`` at the program's padded length, in the
+  case the program pads, and ``get_encoder_out_chunk``), as tests/test_stablehlo_export.py holds the
   JAX programs (DeepSpeech2: PROGRAM_JAX_TOL, the port's LSTM against
   flax's cell); the EfficientConformer's outputs depend on the padding
   (its attention groups 3 frames), so it is held to its unpadded model
@@ -46,6 +46,11 @@ from torch_train_util import one_torch_thread  # noqa: F401
 
 FAMILIES = ['conformer', 'squeezeformer', 'efficient_conformer',
             'deepspeech2']
+# the fewest blocks that keep each family's structure (the Squeezeformer's
+# reduce at block 1 and recover at block 2, the EfficientConformer's stride
+# at block 1 inside its groups): exporting and loading are this file's cost
+SHALLOW = {'squeezeformer': dict(num_blocks=3, recover_idx=2),
+           'efficient_conformer': dict(num_blocks=2)}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -55,7 +60,7 @@ def exported(tmp_path_factory):
     out = {}
     for family in FAMILIES:
         d = tmp_path_factory.mktemp(family)
-        tiny.write_zoo_artifact(d, family)
+        tiny.write_zoo_artifact(d, family, **SHALLOW.get(family, {}))
         code = InferencePredictor(str(d), str(d / 'mean_istd.json'),
                                   use_gpu=False, use_stablehlo=False)
         written = export_programs(code.model, str(d), family, tiny.D)
@@ -83,6 +88,9 @@ def test_programs_match_model_code_and_jax(exported, family):
     code = InferencePredictor(d, cmvn, use_gpu=False, use_stablehlo=False)
     theirs = JaxInfer(d, cmvn, use_stablehlo=False)
     assert prog.stablehlo and prog.model is None and not code.stablehlo
+    # frozen as the programs' weights are: F.linear of a non-contiguous
+    # input picks its GEMM by the weight's requires_grad
+    assert not any(p.requires_grad for p in code.model.parameters())
     ds2 = family == 'deepspeech2'
     jax_tol = dfx.PROGRAM_JAX_TOL.get(family, dfx.PROGRAM_TOL)
     rng = np.random.default_rng(3)
@@ -97,11 +105,12 @@ def test_programs_match_model_code_and_jax(exported, family):
         # the last valid group, so its outputs depend on the length
         if family != 'efficient_conformer':
             assert _valid_max(p1, p2, l1) < dfx.PROGRAM_TOL, (b, t)
-        # at the program's padded length
+        # at the program's padded length; JAX once, where the program pads
         xp = np.pad(x, ((0, 0), (0, max(32, -(-t // 16) * 16) - t), (0, 0)))
-        p3, l3 = theirs.predict(xp, lens)
-        np.testing.assert_array_equal(l1, l3)
-        assert _valid_max(p1, p3, l1) < jax_tol, (b, t)
+        if xp.shape[1] != t:
+            p3, l3 = theirs.predict(xp, lens)
+            np.testing.assert_array_equal(l1, l3)
+            assert _valid_max(p1, p3, l1) < jax_tol, (b, t)
         if ds2:
             code.model.encoder.unpacked = True
         try:
@@ -150,7 +159,9 @@ def test_a_program_serves_only_its_device(exported, tmp_path):
 SERVE = r'''
 import json, sys
 import numpy as np
+import torch
 from ppasr_tpu_torch.infer_utils.inference_predictor import InferencePredictor
+torch.set_num_threads(1)    # as the model code it is held to
 pred = InferencePredictor(sys.argv[1], use_gpu=False)
 x = np.load(sys.argv[2])
 probs, lens = pred.predict(x, np.array([x.shape[1]]))

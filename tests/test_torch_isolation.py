@@ -98,8 +98,8 @@ def test_import_leaves_no_forbidden_module_loaded():
 
 
 def test_server_imports_websockets_only_when_it_starts():
-    """No record shows ``websockets`` on the card's machine: the server
-    imports it inside ``RecognitionServer.start``, never at the top."""
+    """The server imports ``websockets`` inside ``RecognitionServer.start``,
+    never at the top, so its HTTP side runs where the package is absent."""
     path = os.path.join(ROOT, 'ppasr_tpu_torch', 'infer_server.py')
     with open(path, encoding='utf-8') as f:
         tree = ast.parse(f.read(), path)

@@ -133,10 +133,11 @@ ZOO = {
 }
 
 
-def write_zoo_artifact(out, use_model, seed=5):
+def write_zoo_artifact(out, use_model, seed=5, **encoder_overrides):
     """``write_artifact`` for a tiny ``use_model`` of ``ZOO`` (or the
-    Conformer of ``ENC``/``DEC``): the port builds it, ``fill_weights``
-    draws its parameters and ``export_params`` writes them
+    Conformer of ``ENC``/``DEC``), its encoder config updated with
+    ``encoder_overrides``: the port builds it, ``fill_weights`` draws its
+    parameters and ``export_params`` writes them
     (``utils/checkpoint.save_msgpack``) for both packages, with no flax
     init."""
     from make_torch_zoo_fixture import fill_weights
@@ -145,6 +146,7 @@ def write_zoo_artifact(out, use_model, seed=5):
     write_vocab_and_cmvn(out)
     enc, dec, model_conf = dict(
         ZOO, conformer=(ENC, DEC, {'ctc_weight': 0.3}))[use_model]
+    enc = dict(enc, **encoder_overrides)
     model = build_model(use_model, D, len(VOCAB), streaming=True,
                         encoder_conf=enc, decoder_conf=dec,
                         model_conf=model_conf)
