@@ -129,7 +129,26 @@ is not 0:
    device-frontend ``predict_batch`` (one B1 launch) and ``predict_stream``
    (one per window), CTC log-probs of B1's features within 1e-3 of the
    host features';
-15. deploy (tests/fixtures/torch_deploy.npz and its tolerances in
+15. ddp, through ``tests/torch_ddp_worker.py`` (the train CLI's ``main``
+   in each rank, a JSON report per rank) in a workspace under build/ on
+   the training fixture's 8 utterances and their halves: (a) the
+   flagship as committed (256 × 12 blocks, bf16, dropout, B1 with dither,
+   SpecAugment, the audio augmentation on the native loader), 2 updates
+   of 4 × accum_grad 2, under ``torch.distributed.run --nproc_per_node=1``
+   (one NCCL rank, DDP) and without torchrun's environment: losses
+   bit-equal, one B1 launch per micro-batch in each; (b) two gloo ranks
+   both on cuda:0 (gloo, since the host has fewer cards than ranks)
+   against one process with the same global batch, the narrow model in
+   float32 with dropout and dither off, SGD with momentum at lr 0.05
+   (``dw.PARITY_OPTIMIZER``, so that a wrong gradient moves the weights
+   past the tolerance): losses and gradient norms within 1e-5 relative,
+   last_model within 1e-5 (its change from the start is far larger), the
+   ranks' parameters bit-equal, checkpoints from rank 0 only; (c) the native
+   loader built here (g++) on the recipe phase's eleven utterances
+   against the Python item path under the same decisions, per transform
+   within ``tests/torch_native_util.TOLERANCES``; wall per update and
+   ``reader_cost`` against ``batch_cost``;
+16. deploy (tests/fixtures/torch_deploy.npz and its tolerances in
    tests/make_torch_deploy_fixture.py): int8: the committed flagship
    quantized by ``utils/quant``, its dequantized weights bit-equal to the
    JAX package's (the fixture's sha256), ``model.msgpack`` against
@@ -153,7 +172,7 @@ is not 0:
    (the engine featurizes on the host, as JAX's does); wall per request
    and per streamed piece; ``VADModel``: the fixture's seeded weights on
    the card, probabilities within ``VAD_TOL`` of JAX's;
-16. timing, after the paths, whose real-time factors are thus read
+17. timing, after the paths, whose real-time factors are thus read
    before the process first runs the profiler: at each shape of phase 3,
    three rounds time in turn the kernel, the plain version,
    ``torch.fft.rfft`` alone on the same frames, and the kernel again, each
@@ -161,10 +180,11 @@ is not 0:
    included) and the kernel and ``rfft`` also on the device alone
    (``device_ms``, from ``torch.profiler`` recording CUDA activity only);
    and the bound. The kernel table's ``ms`` is ``call_ms`` at the window,
-   its ``launches`` the launches of phases 4, 5, 8–11, 13, 14 and 15 (one
-   per streamed window, one per batch) and 12 and 13 (one per micro-batch
-   of the training path), and its ``max_abs_err`` the largest of phases 3
-   and 5.
+   its ``launches`` the launches of phases 4, 5, 8–11, 13, 14 and 16 (one
+   per streamed window, one per batch) and 12, 13 and 15 (one per
+   micro-batch of the training path; phase 15's counted in the ranks'
+   processes and reported back), and its ``max_abs_err`` the largest of
+   phases 3 and 5.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the one before it the kernel table as JSON; the last line is
@@ -197,6 +217,7 @@ from ppasr_tpu_torch import extract_features as extract_features_cli
 from ppasr_tpu_torch import infer_server
 from ppasr_tpu_torch import train as train_cli
 from ppasr_tpu_torch.config import load_config
+from ppasr_tpu_torch.data import native_pipeline
 from ppasr_tpu_torch.data.audio import AudioSegment
 from ppasr_tpu_torch.data.dataset import collate_raw_fn
 from ppasr_tpu_torch.decoders.beam_search_torch import all_hypotheses
@@ -227,6 +248,8 @@ import make_torch_recipe_fixture as rf  # noqa: E402  (no JAX at import)
 import make_torch_smoke_fixture as fx  # noqa: E402  (no JAX at import)
 import make_torch_train_fixture as tf  # noqa: E402  (no JAX at import)
 import make_torch_zoo_fixture as zf  # noqa: E402  (no JAX at import)
+import torch_ddp_worker as dw  # noqa: E402  (no JAX)
+import torch_native_util as nu  # noqa: E402  (no JAX)
 
 BUILD = os.path.join(ROOT, 'build')
 AUGMENTATION = os.path.join(ROOT, 'configs', 'augmentation.json')
@@ -473,7 +496,7 @@ def check_kernel(dev):
 
 
 def time_kernel(shapes):
-    """Phase 16: the timings of every shape of phase 3, beside its bound;
+    """Phase 17: the timings of every shape of phase 3, beside its bound;
     returns the table entry."""
     rows = []
     for case in shapes:
@@ -1796,6 +1819,183 @@ def recipe_path(card, dev):
     return launches
 
 
+# -------------------------------------------------------------------- ddp
+
+def ddp_argv(work, name, conf, augment=''):
+    """The train CLI's arguments for ``conf`` written under ``work``."""
+    return ['--configs', dw.write_config(os.path.join(work, f'{name}.yml'),
+                                         conf),
+            '--augment_conf_path', augment,
+            '--save_model_path', os.path.join(work, name, 'models'),
+            '--log_dir', os.path.join(work, name, 'log')]
+
+
+def ddp_last_model(work, name, model_dir):
+    return convert_params(load_msgpack(os.path.join(
+        work, name, 'models', model_dir, 'last_model', 'model.msgpack')))
+
+
+def ddp_start(conf):
+    """The trainer's initial parameters for ``conf`` (seeded) on the CPU."""
+    trainer = PPASRTrainer(conf, use_gpu=False)
+    model = trainer._build_model(
+        80, trainer._build_dataset(train=False).vocab_size)
+    trainer._init_params(model)
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def ddp_costs(card, name, report):
+    """Prints a run's wall per update and reader cost beside batch cost."""
+    walls = [round(c, 4) for c in report['batch_costs']]
+    readers = [round(c, 4) for c in report['reader_costs']]
+    print(f"  {name}: wall per update {walls} s, reader_cost {readers} s "
+          f"against batch_cost (the loader's share "
+          f"{sum(report['reader_costs']) / sum(report['batch_costs']):.3f}); "
+          f"{card}", flush=True)
+
+
+def ddp_nccl(card, work):
+    """Ddp phase, (a): the flagship as committed (256 × 12 blocks, bf16 AMP,
+    dropout, the device frontend with dither, SpecAugment and SpecSub,
+    configs/augmentation.json's audio stages on the native loader),
+    batches of 4 × accum_grad 2 over the 16 utterances of
+    ``dw.write_corpus``: 2 updates under ``torch.distributed.run
+    --nproc_per_node=1`` (one NCCL rank on cuda:0, DDP and its all-reduce)
+    and the same without torchrun's environment, both after
+    ``random.seed(0)``; the losses must be bit-equal, B1 launched once per
+    micro-batch in each. Returns B1's launches."""
+    conf = dw.config(work, tiny=False, dropout=True,
+                     dataset_conf={'batch_size': 4},
+                     train_conf={'enable_amp': True, 'accum_grad': 2,
+                                 'device_frontend': True})
+    runs = {}
+    for name, nproc in (('alone', None), ('torchrun', 1)):
+        (report,), wall = timed(lambda: dw.launch(
+            os.path.join(work, f'{name}_report'),
+            ddp_argv(work, name, conf, dw.AUGMENTATION), nproc=nproc,
+            cwd=work, timeout=600)[0])
+        runs[name] = report
+        print(f"  (a) {name}: {wall:.2f} s for the process, losses "
+              f"{report['losses']}, backend {report['backend']}, "
+              f"{report['device']}, B1 launches {report['launches']}, "
+              f"native batches {report['native_batches']}", flush=True)
+        ddp_costs(card, f'(a) {name}', report)
+    alone, ranked = runs['alone'], runs['torchrun']
+    if not (ranked['ddp'] and ranked['backend'] == 'nccl'
+            and ranked['world'] == 1 and not alone['ddp']):
+        raise AssertionError(f"(a) ran {ranked} / {alone}")
+    if ranked['losses'] != alone['losses'] or len(alone['losses']) != 2 \
+            or not np.isfinite(alone['losses']).all():
+        raise AssertionError(f"(a) losses under one NCCL rank "
+                             f"{ranked['losses']} != alone {alone['losses']}")
+    for r in (alone, ranked):
+        if r['launches'] != 4 or r['native_batches'] != 2:
+            raise AssertionError(f"(a) B1 launches {r['launches']} (want "
+                                 f"4, one per micro-batch), native batches "
+                                 f"{r['native_batches']}")
+    return alone['launches'] + ranked['launches']
+
+
+def ddp_gloo(card, work):
+    """Ddp phase, (b): two gloo ranks both on cuda:0 under
+    ``torch.distributed.run --nproc_per_node=2`` (more ranks than cards:
+    gloo) against one process with the same global batch (8: 2 × accum_grad
+    2 a rank), the narrow model of the CPU tests in float32, not streaming
+    (the dynamic chunk's draw depends on the padded length), dropout and
+    dither off, ``dw.PARITY_OPTIMIZER``, raw audio on the native loader
+    through B1: losses and gradient norms within 1e-5 relative, last_model
+    within 1e-5 and moved from the start by over 100 times that, the
+    ranks' parameters bit-equal, only rank 0 writing checkpoints. Returns
+    B1's launches."""
+    reports = {}
+    for name, nproc, batch in (('one', None, 4), ('two', 2, 2)):
+        conf = dw.config(work, streaming=False,
+                         dataset_conf={'batch_size': batch},
+                         train_conf={'accum_grad': 2,
+                                     'device_frontend': True},
+                         optimizer_conf=dw.PARITY_OPTIMIZER)
+        argv = ddp_argv(work, f'gloo_{name}', conf)
+        reports[name], wall = timed(lambda: dw.launch(
+            os.path.join(work, f'gloo_{name}_report'), argv, nproc=nproc,
+            cwd=work, dither=False, timeout=600)[0])
+        print(f"  (b) {name} process(es): {wall:.2f} s, losses "
+              f"{[r['losses'] for r in reports[name]]}, devices "
+              f"{[r['device'] for r in reports[name]]}", flush=True)
+        ddp_costs(card, f'(b) {name}, rank 0', reports[name][0])
+    (one,), two = reports['one'], reports['two']
+
+    def rel(key):
+        return max(abs(a - b) / abs(b) for a, b in zip(two[0][key],
+                                                       one[key]))
+    model_dir = 'conformer_fbank'
+    want = ddp_last_model(work, 'gloo_one', model_dir)
+    got = ddp_last_model(work, 'gloo_two', model_dir)
+    err = max(float((got[k] - v).abs().max()) for k, v in want.items())
+    start = ddp_start(conf)
+    moved = max(float((want[k] - v).abs().max()) for k, v in start.items())
+    print(f"  (b) two gloo ranks against one process: losses within "
+          f"{rel('losses'):.3g}, gradient norms {two[0]['grad_norms']} "
+          f"within {rel('grad_norms'):.3g} relative (tolerance 1e-5), "
+          f"last_model within {err:.3g} (tolerance 1e-5) after moving "
+          f"{moved:.3g} from the start, rank digests equal "
+          f"{two[0]['digest'] == two[1]['digest']}, checkpoints written "
+          f"{[r['saves'] for r in two]}", flush=True)
+    if not (all(r['backend'] == 'gloo' and r['device'] == 'cuda:0'
+                and r['world'] == 2 for r in two)
+            and two[0]['losses'] == two[1]['losses']
+            and two[0]['grad_norms'] == two[1]['grad_norms']
+            and two[0]['digest'] == two[1]['digest']
+            and rel('losses') <= 1e-5 and rel('grad_norms') <= 1e-5
+            and err <= 1e-5 and moved > 100 * 1e-5
+            and two[1]['saves'] == []
+            and two[0]['saves'] == ['epoch_1', 'best_model']):
+        raise AssertionError("(b) two gloo ranks disagree with one process")
+    return one['launches'] + sum(r['launches'] for r in two)
+
+
+def ddp_native(card, work):
+    """Ddp phase, (c): the native loader built here (g++, csrc/
+    audio_pipeline.cpp) on the recipe phase's eleven utterances against
+    the Python item path under the same decisions, transform by
+    transform, within ``nu.TOLERANCES``."""
+    entries = []
+    for i, (pcm, text, _) in enumerate(rf.utterances()):
+        path = os.path.join(work, f'native_{i}.wav')
+        AudioSegment.from_ndarray(pcm).to_wav_file(path)
+        entries.append({'audio_filepath': path, 'duration': len(pcm) / 16e3,
+                        'text': text})
+    noise = nu.write_noise(os.path.join(work, 'noise.wav'))
+    errors, wall = timed(lambda: nu.native_against_items(entries, noise,
+                                                         n_threads=4))
+    print(f"  (c) native loader ({native_pipeline.library_path().name}) "
+          f"against the Python item path, max |Δ| in int16 units: "
+          f"{errors} (tolerances {nu.TOLERANCES}); {wall:.3f} s", flush=True)
+    bad = {k: v for k, v in errors.items() if v > nu.TOLERANCES[k]}
+    if bad:
+        raise AssertionError(f"(c) the native loader is off: {bad}")
+
+
+def ddp_path(card):
+    """Phase 15: multi-process training (``ddp_nccl``, ``ddp_gloo``,
+    ``ddp_native``) in a workspace under build/. Returns B1's launches."""
+    work = tempfile.mkdtemp(prefix='ddp_', dir=BUILD)
+    try:
+        dw.write_corpus(work)
+        t0 = time.time()
+        launches = ddp_nccl(card, work)
+        print(f"  (a): {time.time() - t0:.2f} s", flush=True)
+        t0 = time.time()
+        launches += ddp_gloo(card, work)
+        print(f"  (b): {time.time() - t0:.2f} s", flush=True)
+        t0 = time.time()
+        ddp_native(card, work)
+        print(f"  (c): {time.time() - t0:.2f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"  B1 launches in the ranks' processes: {launches}", flush=True)
+    return launches
+
+
 # ----------------------------------------------------------------- deploy
 
 def pt2_sizes(directory):
@@ -2092,7 +2292,7 @@ def deploy_vad(card, ddata):
 
 
 def deploy_path(card, pred, artifact, data, pcms):
-    """Phase 15: the deployment path (``deploy_int8``,
+    """Phase 16: the deployment path (``deploy_int8``,
     ``deploy_programs``, ``deploy_server``, ``deploy_vad``). Returns B1's
     launches."""
     ddata = np.load(dfx.OUT)
@@ -2189,6 +2389,10 @@ def main():
     t0 = time.time()
     launches += recipe_path(card, dev)
     phase('recipe', t0)
+
+    t0 = time.time()
+    launches += ddp_path(card)
+    phase('ddp', t0)
 
     t0 = time.time()
     launches += deploy_path(card, pred, artifact, data, pcms)

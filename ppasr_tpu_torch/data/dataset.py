@@ -11,20 +11,28 @@ read through a memory map. ``manifest_type='binary'`` reads the records
 of ``data/binary.DatasetReader`` (``<manifest>.data`` and ``.header``)
 instead of the JSON lines. The features are not normalized here: the
 model holds the CMVN, and the trainer builds the dataset without one, so
-the dataset's ``mean_istd_filepath`` is not ported; nor is the C++ raw
-batch path (``load_raw_batch``, ``data/native_pipeline.py``; ROADMAP Queue
-A, item 2).
+the dataset's ``mean_istd_filepath`` is not ported.
+
+In raw mode with every enabled audio stage native (``native_raw``), the
+loader takes whole batches through ``load_raw_batch``: the C++ loader of
+``data/native_pipeline`` reads, augments and normalizes them on a thread
+pool, and an item it rejects goes through the Python item path. Building
+the library happens with the dataset, and a failed build raises.
 
 ``collate_fn`` pads features (time and label axes rounded up to buckets,
 labels padded with −1) and hands waveform items to ``collate_raw_fn``,
 which rounds the samples up to ``RAW_SAMPLE_BUCKET`` = 64·160, a multiple
 of 160, so kernel B1's flat launch applies as it stands, and quantizes the
-waveforms to int16 for the host→device copy.
+waveforms to int16 for the host→device copy. ``pad_to=(frames or samples,
+labels)`` raises the pad targets before the rounding: the ranks of a
+multi-process run pad to a target drawn from the whole world batch, and
+``pad_to_max`` pads every batch to one shape.
 """
 import random
 
 import numpy as np
 
+from ppasr_tpu_torch.data import native_pipeline
 from ppasr_tpu_torch.data.audio import AudioSegment
 from ppasr_tpu_torch.data.augmentor.augmentation import AugmentationPipeline
 from ppasr_tpu_torch.data.binary import DatasetReader
@@ -69,6 +77,15 @@ class ASRDataset:
         self.return_raw = bool(return_raw)
         if self.return_raw and manifest_type != 'txt':
             raise ValueError("return_raw requires a txt manifest of wavs")
+        self.native_raw = self.return_raw and \
+            native_pipeline.native_stages_only(self.augmentation)
+        if self.native_raw:
+            native_pipeline.load()
+        self._sample_rate = int(preprocess_conf.get('sample_rate', 16000))
+        self._target_db = (float(preprocess_conf.get('target_dB', -20))
+                           if preprocess_conf.get('use_dB_normalization',
+                                                  True)
+                           else None)
 
     def __len__(self):
         if self.dataset_reader is not None:
@@ -116,6 +133,53 @@ class ASRDataset:
             feature = self.augmentation.transform_feature(feature)
         return feature.astype(np.float32), tokens
 
+    def load_raw_batch(self, indices, label_bucket: int = 16, pad_to=None,
+                       n_threads: int = 4):
+        """Indices → (wavs [B, S] int16, labels [B, U] int32 padded with −1,
+        wav_lens [B] int64, label_lens [B] int64) through the C++ loader
+        (:154-195): each item's augmentation drawn in Python, S the longest
+        duration times the slowest drawn speed rate plus 256 samples (at
+        least ``pad_to[0]``) rounded up to ``RAW_SAMPLE_BUCKET``, U rounded
+        up to ``label_bucket`` (at least ``pad_to[1]``)."""
+        if not self.native_raw:
+            raise ValueError("load_raw_batch needs raw mode with native "
+                             "audio stages only")
+        entries = [self.entry(i) for i in indices]
+        params = [native_pipeline.draw_augment_params(self.augmentation)
+                  for _ in entries]
+        stretch = 1.0
+        for p in params:
+            if p.speed_rate > 0:
+                stretch = max(stretch, 1.0 / p.speed_rate)
+        max_s = max(int(float(e.get('duration', 0.0)) * self._sample_rate
+                        * stretch) + 256 for e in entries)
+        if pad_to is not None:
+            max_s = max(max_s, int(pad_to[0]))
+        max_s = _round_up(max_s, RAW_SAMPLE_BUCKET)
+        wavs, lens = native_pipeline.load_raw_batch(
+            entries, params, self._sample_rate, self._target_db, max_s,
+            n_threads=n_threads)
+        for j, i in enumerate(indices):
+            if lens[j] < 0:  # rejected by the C++ core: the item path
+                w, _ = self[i]
+                n = min(len(w), max_s)
+                wavs[j, :n] = w[:n]
+                wavs[j, n:] = 0.0
+                lens[j] = n
+        texts = [np.asarray(self.text_featurizer.featurize(e['text']),
+                            np.int32) for e in entries]
+        max_u = max(max(len(t) for t in texts), 1)
+        if pad_to is not None:
+            max_u = max(max_u, int(pad_to[1]))
+        max_u = _round_up(max_u, max(label_bucket, 1))
+        labels = np.full((len(entries), max_u), -1, np.int32)
+        label_lens = np.zeros((len(entries),), np.int64)
+        for j, t in enumerate(texts):
+            labels[j, :len(t)] = t
+            label_lens[j] = len(t)
+        return (_wav_to_int16(wavs), labels, lens.astype(np.int64),
+                label_lens)
+
     @property
     def feature_dim(self):
         return self.audio_featurizer.feature_dim
@@ -134,21 +198,25 @@ def _round_up(x: int, multiple: int) -> int:
 
 
 def collate_fn(batch, time_bucket: int = 1, label_bucket: int = 1,
-               shuffle: bool = True):
+               shuffle: bool = True, pad_to=None):
     """List of (feature [T, D], tokens [U]) → (inputs [B, Tmax, D] float32,
     labels [B, Umax] int32 padded with −1, input_lens [B] int64, label_lens
-    [B] int64), the axes rounded up to the buckets; the order shuffled
-    within the batch with ``random`` when ``shuffle``. Waveform items go to
-    ``collate_raw_fn``."""
+    [B] int64), the axes at least ``pad_to`` and rounded up to the buckets;
+    the order shuffled within the batch with ``random`` when ``shuffle``.
+    Waveform items go to ``collate_raw_fn``."""
     if shuffle:
         batch = list(batch)
         random.shuffle(batch)
     if batch[0][0].ndim == 1:
-        return collate_raw_fn(batch, label_bucket=max(label_bucket, 1))
+        return collate_raw_fn(batch, label_bucket=max(label_bucket, 1),
+                              pad_to=pad_to)
     bsz = len(batch)
     dim = batch[0][0].shape[1]
     max_t = max(f.shape[0] for f, _ in batch)
     max_u = max(max(len(t) for _, t in batch), 1)
+    if pad_to is not None:
+        max_t = max(max_t, int(pad_to[0]))
+        max_u = max(max_u, int(pad_to[1]))
     max_t = _round_up(max_t, time_bucket)
     max_u = _round_up(max_u, label_bucket)
     inputs = np.zeros((bsz, max_t, dim), np.float32)
@@ -176,13 +244,17 @@ def _wav_to_int16(wavs: np.ndarray) -> np.ndarray:
 
 
 def collate_raw_fn(batch, sample_bucket: int = RAW_SAMPLE_BUCKET,
-                   label_bucket: int = 16):
+                   label_bucket: int = 16, pad_to=None):
     """List of (waveform [S], tokens [U]) → (wavs [B, Smax] int16, labels
     [B, Umax] int32 padded with −1, wav_lens [B] int64 sample counts,
-    label_lens [B] int64)."""
+    label_lens [B] int64), the axes at least ``pad_to`` (samples,
+    labels)."""
     bsz = len(batch)
     max_s = max(w.shape[0] for w, _ in batch)
     max_u = max(max(len(t) for _, t in batch), 1)
+    if pad_to is not None:
+        max_s = max(max_s, int(pad_to[0]))
+        max_u = max(max_u, int(pad_to[1]))
     max_s = _round_up(max_s, sample_bucket)
     max_u = _round_up(max_u, label_bucket)
     wavs = np.zeros((bsz, max_s), np.float32)

@@ -1,10 +1,16 @@
 """Prefetching data loader: sampler + dataset + collate on worker threads
-(counterpart of ppasr_tpu/data/loader.py:15-109, without the native raw
-batch path and the pad targets that multi-process training and
-``pad_to_max``'s single compiled shape need). At most ``num_workers +
+(counterpart of ppasr_tpu/data/loader.py:15-109). At most ``num_workers +
 prefetch_factor`` batches are in flight; the consumer stopping early stops
-the producer, and a dataset error is raised in the consumer."""
+the producer, and a dataset error is raised in the consumer.
+
+``pad_to=(frames or samples, labels)`` is a constant least pad target
+(``dataset_conf.pad_to_max``); a sampler may also yield ``(indices,
+(pad_t, pad_u))``, the target of its world batch, and the two combine by
+their maximum. A raw dataset on the native loader (``native_raw``) loads
+each batch in one ``load_raw_batch`` call on ``num_workers`` C++ threads,
+after the in-batch shuffle."""
 import queue
+import random
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -15,7 +21,8 @@ from ppasr_tpu_torch.data.dataset import collate_fn
 class DataLoader:
     def __init__(self, dataset, batch_sampler, num_workers: int = 4,
                  prefetch_factor: int = 2, time_bucket: int = 16,
-                 label_bucket: int = 8, shuffle_in_batch: bool = True):
+                 label_bucket: int = 8, shuffle_in_batch: bool = True,
+                 pad_to=None):
         self.dataset = dataset
         self.batch_sampler = batch_sampler
         self.num_workers = max(1, num_workers)
@@ -23,14 +30,28 @@ class DataLoader:
         self.time_bucket = time_bucket
         self.label_bucket = label_bucket
         self.shuffle_in_batch = shuffle_in_batch
+        self.pad_to = pad_to
 
     def __len__(self):
         return len(self.batch_sampler)
 
     def _load_batch(self, indices):
+        pad_to = self.pad_to
+        if isinstance(indices, tuple):
+            indices, pad_to = indices
+            if self.pad_to is not None:
+                pad_to = (max(pad_to[0], self.pad_to[0]),
+                          max(pad_to[1], self.pad_to[1]))
+        if getattr(self.dataset, 'native_raw', False):
+            if self.shuffle_in_batch:
+                indices = list(indices)
+                random.shuffle(indices)
+            return self.dataset.load_raw_batch(
+                indices, label_bucket=self.label_bucket, pad_to=pad_to,
+                n_threads=self.num_workers)
         items = [self.dataset[i] for i in indices]
         return collate_fn(items, self.time_bucket, self.label_bucket,
-                          shuffle=self.shuffle_in_batch)
+                          shuffle=self.shuffle_in_batch, pad_to=pad_to)
 
     def __iter__(self):
         q = queue.Queue(maxsize=self.prefetch * self.num_workers)

@@ -25,6 +25,9 @@ the last axis: in ``train()`` mode it normalizes by the batch's mean and
 biased variance over every other axis and moves the running statistics
 by 0.1 towards them; in ``eval()`` mode it uses the running statistics.
 Statistics, parameters and the arithmetic are float32, as for LayerNorm.
+Under a process group of more than one rank, training mode takes the
+moments of the global batch: the ranks' sums, sums of squares and counts
+are all-reduced, with a backward that all-reduces their gradients.
 
 ``init_parameters`` draws a fresh model from the JAX model's distributions:
 Kaiming uniform (fan in, gain 2) for Dense and Conv kernels, times
@@ -46,6 +49,9 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from ppasr_tpu_torch.parallel.distributed import (all_reduce_sum_with_grad,
+                                                  world_size)
 
 
 def swish(x):
@@ -100,8 +106,19 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             dims = tuple(range(xf.ndim - 1))
-            mean = xf.mean(dim=dims)
-            var = (xf * xf).mean(dim=dims) - mean * mean
+            if world_size() > 1:
+                # the global batch's moments, as GSPMD reduces them over
+                # the sharded batch axis in JAX
+                count = torch.full((1,), xf.numel() // xf.shape[-1],
+                                   dtype=xf.dtype, device=xf.device)
+                sums = all_reduce_sum_with_grad(torch.cat(
+                    [xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]))
+                c = xf.shape[-1]
+                mean = sums[:c] / sums[-1]
+                var = sums[c:2 * c] / sums[-1] - mean * mean
+            else:
+                mean = xf.mean(dim=dims)
+                var = (xf * xf).mean(dim=dims) - mean * mean
             with torch.no_grad():
                 self.running_mean.lerp_(mean.detach(), self.momentum)
                 self.running_var.lerp_(var.detach(), self.momentum)

@@ -5,7 +5,13 @@
         [--overwrites "dataset_conf.batch_size=8,train_conf.max_epoch=2"]
 
 Runs on ``cuda:0`` unless ``--use_gpu False``; without a card the default
-raises. ``kill -USR1 <pid>`` dumps every thread's stack to stderr.
+raises. On N cards, one process each (``batch_size`` is a rank's):
+
+    torchrun --nproc_per_node=N -m ppasr_tpu_torch.train --configs ...
+
+(NCCL; gloo where N exceeds the cards, and N gloo processes on the CPU
+with ``--use_gpu False``). ``kill -USR1 <pid>`` dumps every thread's stack
+to stderr.
 """
 import argparse
 import faulthandler
@@ -36,14 +42,20 @@ def main(argv=None):
     faulthandler.register(signal.SIGUSR1)
     args = parse_args(argv)
     print_arguments(args=args)
+    import torch.distributed as dist
+
     from ppasr_tpu_torch.trainer import PPASRTrainer
     trainer = PPASRTrainer(configs=args.configs, use_gpu=args.use_gpu,
                            overwrites=args.overwrites,
                            data_augment_configs=args.augment_conf_path)
-    return trainer.train(save_model_path=args.save_model_path,
-                         log_dir=args.log_dir,
-                         resume_model=args.resume_model,
-                         pretrained_model=args.pretrained_model)
+    try:
+        return trainer.train(save_model_path=args.save_model_path,
+                             log_dir=args.log_dir,
+                             resume_model=args.resume_model,
+                             pretrained_model=args.pretrained_model)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == '__main__':

@@ -19,14 +19,36 @@ device with no gradient; else features ('speech', 'speech_lens').
 
 The step runs under ``predict.ieee_float32()``: float32 matmuls and
 convolutions in full float32 and bf16 products reduced in float32, as XLA
-computes them. Data parallelism across processes (``data_mesh``,
-``shard_batch``, ``replicate``) comes with DDP (ROADMAP Queue A, item 1).
+computes them.
+
+Data parallelism across processes (the counterpart of ``data_mesh``,
+``shard_batch`` and ``replicate``, :106-135): ``data_parallel`` wraps the
+model in ``DistributedDataParallel`` over the running process group, each
+rank holding its slice of the global batch. Micro-steps 0..accum−2 run
+under ``no_sync()``, so one all-reduce averages the summed gradients per
+update; the division by ``accum_grad``, the clip and AdamW then run alike
+on every rank. With more than one rank the step keeps JAX's global-batch
+arithmetic:
+
+- ``'dropout'`` and ``'frontend'`` fold the rank in, so the ranks draw
+  different masks and dither as JAX's one draw over the global batch does;
+  ``'chunk'`` does not, so every rank takes the same dynamic chunk. One
+  rank draws exactly the single-process streams;
+- under ``length_normalized_loss`` each rank scales its attention loss by
+  ``world · local tokens / global tokens``, so the average over the ranks
+  is the loss over the global batch's tokens (JAX divides by the global
+  count); ``th_accuracy`` is weighted the same way;
+- the metrics are averaged over the ranks, the global batch's values.
 """
+import contextlib
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ppasr_tpu_torch.optimizer.factory import (build_optimizer,
                                                clip_by_global_norm)
+from ppasr_tpu_torch.parallel.distributed import all_reduce_sum
 from ppasr_tpu_torch.predict import ieee_float32
 
 METRICS = ('loss', 'loss_att', 'loss_ctc', 'th_accuracy')
@@ -34,7 +56,8 @@ METRICS = ('loss', 'loss_att', 'loss_ctc', 'th_accuracy')
 
 class TrainState:
     """The model, its optimizer and schedule, the clip and the count of
-    updates done (``step``)."""
+    updates done (``step``); after ``data_parallel`` its DDP ``replica``,
+    this process's ``rank`` and the ``world`` size."""
 
     def __init__(self, model, optimizer, schedule, grad_clip: float,
                  step: int = 0):
@@ -43,6 +66,8 @@ class TrainState:
         self.schedule = schedule
         self.grad_clip = grad_clip
         self.step = step
+        self.replica = None
+        self.rank, self.world = 0, 1
 
     @property
     def params(self):
@@ -64,18 +89,65 @@ def fold_in(seed: int, *data: int) -> int:
     return int(words[0]) << 31 | int(words[1]) >> 1
 
 
-def micro_rngs(seed: int, i: int, device, frontend: bool = False) -> dict:
+def micro_rngs(seed: int, i: int, device, frontend: bool = False,
+               rank: int = None) -> dict:
     """Micro-step i's generators: 'dropout', 'chunk' (CPU) and, with a
-    frontend, 'frontend'."""
+    frontend, 'frontend'; ``rank`` (given when there is more than one)
+    is folded into 'dropout' and 'frontend'."""
     step_seed = fold_in(seed, i)
-    rngs = {'dropout': torch.Generator(device).manual_seed(
-                fold_in(step_seed, 0)),
+
+    def per_rank(k):
+        s = fold_in(step_seed, k)
+        return s if rank is None else fold_in(s, rank)
+
+    rngs = {'dropout': torch.Generator(device).manual_seed(per_rank(0)),
             'chunk': torch.Generator('cpu').manual_seed(
                 fold_in(step_seed, 1))}
     if frontend:
-        rngs['frontend'] = torch.Generator(device).manual_seed(
-            fold_in(step_seed, 2))
+        rngs['frontend'] = torch.Generator(device).manual_seed(per_rank(2))
     return rngs
+
+
+def unused_parameters(model, input_dim: int, frames: int = 256) -> list:
+    """Names of the trainable parameters that the training loss does not
+    reach, from one forward of a zero batch in eval mode (no dropout,
+    running statistics, nothing updated) and ``autograd.grad``: the
+    right-to-left decoder under ``reverse_weight`` 0, a Squeezeformer's
+    time reduction or recovery past its last block."""
+    device = next(model.parameters()).device
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.enable_grad(), ieee_float32():
+            out = model(
+                torch.zeros((2, frames, input_dim), device=device),
+                torch.tensor([frames, frames // 2], device=device),
+                torch.tensor([[1, 1], [1, -1]], dtype=torch.int32,
+                             device=device),
+                torch.tensor([2, 1], device=device))
+            grads = torch.autograd.grad(out['loss'], [p for _, p in named],
+                                        allow_unused=True)
+    finally:
+        model.train(was_training)
+    return [n for (n, _), g in zip(named, grads) if g is None]
+
+
+def data_parallel(state: TrainState, input_dim: int) -> list:
+    """Wrap ``state.model`` in ``DistributedDataParallel`` over the running
+    process group (a rank's own card, or the CPU under gloo). Buffers are
+    not broadcast: the CMVN is constant and ``BatchNorm``'s running
+    statistics move alike on every rank. ``find_unused_parameters`` is on
+    only where ``unused_parameters`` finds some. Returns their names."""
+    from torch.nn.parallel import DistributedDataParallel
+    model = state.model
+    device = next(model.parameters()).device
+    unused = unused_parameters(model, input_dim)
+    state.replica = DistributedDataParallel(
+        model, device_ids=[device.index] if device.type == 'cuda' else None,
+        broadcast_buffers=False, find_unused_parameters=bool(unused))
+    state.rank, state.world = dist.get_rank(), dist.get_world_size()
+    return unused
 
 
 def make_train_step(accum_grad: int = 1, frontend=None,
@@ -90,22 +162,35 @@ def make_train_step(accum_grad: int = 1, frontend=None,
 
     def train_step(state: TrainState, batches: dict, seed: int) -> dict:
         model = state.model
+        net = model if state.replica is None else state.replica
+        multi = state.world > 1
         device = next(model.parameters()).device
         model.train(not deterministic)
+        if multi:
+            # each micro-step's decoder targets (the texts and their <eos>)
+            # here and over every rank
+            tokens = (batches['text_lens'] + 1).sum(dim=1).float()
+            share = tokens * state.world / all_reduce_sum(tokens.clone())
         sums = {}
         with ieee_float32():
             for i in range(accum_grad):
                 batch = {k: v[i] for k, v in batches.items()}
-                rngs = micro_rngs(seed, i, device, frontend is not None)
+                rngs = micro_rngs(seed, i, device, frontend is not None,
+                                  state.rank if multi else None)
                 if frontend is not None and 'wav' in batch:
                     speech, speech_lens = frontend(
                         batch['wav'], batch['wav_lens'], rngs['frontend'],
                         deterministic=deterministic)
                 else:
                     speech, speech_lens = batch['speech'], batch['speech_lens']
-                out = model(speech, speech_lens, batch['text'],
-                            batch['text_lens'], rngs=rngs)
-                out['loss'].backward()
+                sync = state.replica is None or i == accum_grad - 1
+                with contextlib.nullcontext() if sync else \
+                        state.replica.no_sync():
+                    out = net(speech, speech_lens, batch['text'],
+                              batch['text_lens'], rngs=rngs)
+                    if multi:
+                        out = _global_terms(model, out, share[i])
+                    out['loss'].backward()
                 for k in METRICS:
                     v = out[k]
                     v = torch.zeros((), device=device) if v is None \
@@ -126,7 +211,26 @@ def make_train_step(accum_grad: int = 1, frontend=None,
             state.optimizer.zero_grad(set_to_none=True)
         state.step += 1
         metrics = {k: v / accum_grad for k, v in sums.items()}
+        if multi:
+            mean = all_reduce_sum(torch.stack([metrics[k] for k in METRICS])
+                                  ) / state.world
+            metrics = dict(zip(METRICS, mean.unbind()))
         metrics['grad_norm'] = grad_norm
         return metrics
 
     return train_step
+
+
+def _global_terms(model, out: dict, share: torch.Tensor) -> dict:
+    """One rank's loss terms rescaled so that their mean over the ranks is
+    the global batch's: ``share`` = world · local tokens / global tokens
+    multiplies the attention loss where it is normalized by its tokens,
+    and the token accuracy."""
+    out = dict(out)
+    if out['th_accuracy'] is not None:
+        out['th_accuracy'] = out['th_accuracy'] * share
+    if out['loss_att'] is not None and model.length_normalized_loss:
+        out['loss_att'] = out['loss_att'] * share
+        out['loss'] = model.ctc_weight * out['loss_ctc'] \
+            + (1 - model.ctc_weight) * out['loss_att']
+    return out

@@ -51,16 +51,31 @@ read 0 in the step's metrics, as in the JAX train step):
   PyTorch's own ``optimizer.pt``. ``pretrained_model`` is a shape-filtered
   partial load of any ``model.msgpack``, the JAX package's included.
 
-The model runs on ``cuda:0`` unless ``use_gpu=False``; without a card
-``use_gpu=True`` raises. Each update's random streams derive from seed 1000
-and the update count. No fallback: an unknown decoder, a beam decoder or
+The model runs on ``cuda:0`` (under torchrun, on its rank's card) unless
+``use_gpu=False``; without a card ``use_gpu=True`` raises. Each update's
+random streams derive from seed 1000 and the update count. No fallback: an unknown decoder, a beam decoder or
 rescorer that fails to build, and rescoring with DeepSpeech2 raise, where
 the JAX trainer decodes greedy; ``streaming_eval`` with DeepSpeech2
-raises, as in JAX. Left out: multi-process data parallelism (ROADMAP
-Queue A, item 1) and ``pad_to_max``, one padded shape for a single compile,
-which eager PyTorch does not need.
+raises, as in JAX.
+
+Multi-process data parallelism (:409-466, :598, :627): under torchrun's
+environment (``torchrun --nproc_per_node=N -m ppasr_tpu_torch.train``)
+``train`` starts the process group (``parallel.init_distributed``: NCCL on
+the cards, gloo on the CPU or with more ranks than cards), runs on its
+rank's device and wraps the model in DDP (``train_state.data_parallel``),
+also with one rank. With more than one rank each takes its slice of every
+world batch (``SortagradDistributedBatchSampler``, ``batch_size ·
+accum_grad`` utterances a rank) padded to a target all ranks derive from
+the world batch's durations and texts (1.12 × the duration under
+augmentation, plus 64 samples in raw mode or 4 frames otherwise).
+``dataset_conf.pad_to_max`` pads every batch to the largest such target of
+the manifest. Only rank 0 writes checkpoints, the tensorboard scalars and
+the ``profile_steps`` trace; every rank evaluates, and every rank reads
+``last_model`` when it resumes, after a barrier. Without torchrun's
+environment nothing of this starts.
 """
 import json
+import math
 import os
 import shutil
 import time
@@ -77,7 +92,8 @@ from ppasr_tpu_torch.data.manifest import (count_manifest, create_manifest,
                                            create_manifest_binary,
                                            create_noise, read_manifest)
 from ppasr_tpu_torch.data.normalizer import FeatureNormalizer
-from ppasr_tpu_torch.data.sampler import SortagradBatchSampler
+from ppasr_tpu_torch.data.sampler import (SortagradBatchSampler,
+                                          SortagradDistributedBatchSampler)
 from ppasr_tpu_torch.decoders.beam_search_torch import TorchBeamSearchDecoder
 from ppasr_tpu_torch.decoders.factory import build_decoder
 from ppasr_tpu_torch.decoders.greedy import _collapse, greedy_decoder_batch
@@ -86,9 +102,11 @@ from ppasr_tpu_torch.infer_utils.torch_export import export_programs
 from ppasr_tpu_torch.models.factory import build_model
 from ppasr_tpu_torch.models.streaming_eval import (streaming_encode_batch,
                                                    streaming_greedy_batch)
+from ppasr_tpu_torch.parallel.distributed import barrier, init_distributed
 from ppasr_tpu_torch.predict import ieee_float32
 from ppasr_tpu_torch.train_state import (TrainState, create_train_state,
-                                         fold_in, make_train_step)
+                                         data_parallel, fold_in,
+                                         make_train_step)
 from ppasr_tpu_torch.utils.checkpoint import (convert_params, export_params,
                                               load_msgpack, save_msgpack)
 from ppasr_tpu_torch.utils.common import dict_to_object, labels_to_string
@@ -110,7 +128,9 @@ class PPASRTrainer:
         if use_gpu and not torch.cuda.is_available():
             raise RuntimeError("use_gpu=True but torch.cuda.is_available() "
                                "is False; pass use_gpu=False for the CPU")
+        self.use_gpu = use_gpu
         self.device = torch.device('cuda:0' if use_gpu else 'cpu')
+        self.rank, self.world = 0, 1  # ``train`` sets them under torchrun
         self.configs = load_config(configs) if not isinstance(configs, dict) \
             else dict_to_object(configs)
         if overwrites:
@@ -128,6 +148,7 @@ class PPASRTrainer:
         self.stop_train = False
         self.stop_eval = False
         self.step_losses = []   # every update's loss, a 0-d device tensor
+        self.step_costs = []    # every update's (reader_cost, batch_cost) s
         self.eval_results = []  # the last evaluate's utterances
         self._eval_decoder_model = None
         self._eval_decoder = None
@@ -384,6 +405,9 @@ class PPASRTrainer:
               resume_model: str = None, pretrained_model: str = None):
         """Train; returns the final ``TrainState``. ``log_dir`` receives the
         scalars and the ``profile_steps`` trace."""
+        # the process group starts here, as in JAX (:409-420), so that the
+        # host-only entry points never join one
+        self.rank, self.world, self.device = init_distributed(self.use_gpu)
         train_conf = self.configs.train_conf
         dataset_conf = self.configs.dataset_conf
         accum_grad = int(train_conf.get('accum_grad', 1))
@@ -419,13 +443,41 @@ class PPASRTrainer:
 
         sample_rate = int(self.configs.preprocess_conf.get('sample_rate',
                                                            16000))
-        sampler = SortagradBatchSampler(len(train_dataset),
-                                        batch_size * accum_grad,
-                                        drop_last=True)
+        # pad targets from the manifest (:436-466), alike on every rank
+        pad_margin = 1.12 if train_dataset.augmentation is not None else 1.0
+
+        def entry_pad(i):
+            e = train_dataset.entry(i)
+            if device_frontend:  # raw mode pads samples, not frames
+                t = int(math.ceil(float(e.get('duration', 0.0))
+                                  * sample_rate * pad_margin)) + 64
+            else:
+                t = int(math.ceil(
+                    float(e.get('duration', 0.0)) * 100.0 * pad_margin)) + 4
+            return t, max(len(str(e.get('text', ''))), 1)
+
+        def pad_hint_fn(global_indices):
+            pads = [entry_pad(i) for i in global_indices]
+            return max(p[0] for p in pads), max(p[1] for p in pads)
+
+        const_pad = None
+        if dataset_conf.get('pad_to_max'):
+            const_pad = pad_hint_fn(range(len(train_dataset)))
+            logger.info(f"pad_to_max: all batches pad to frames/labels "
+                        f"{const_pad}")
+        if self.world > 1:
+            sampler = SortagradDistributedBatchSampler(
+                len(train_dataset), batch_size * accum_grad,
+                num_replicas=self.world, rank=self.rank, drop_last=True,
+                pad_hint_fn=None if const_pad else pad_hint_fn)
+        else:
+            sampler = SortagradBatchSampler(len(train_dataset),
+                                            batch_size * accum_grad,
+                                            drop_last=True)
         loader = DataLoader(train_dataset, sampler,
                             num_workers=int(dataset_conf.get('num_workers',
                                                              4)),
-                            time_bucket=64, label_bucket=16)
+                            time_bucket=64, label_bucket=16, pad_to=const_pad)
 
         model = self._build_model(input_dim, vocab_size)
         # a decoder that cannot be built raises before the first step
@@ -435,11 +487,20 @@ class PPASRTrainer:
         summary(model)
         self._load_pretrained(pretrained_model, model)
         state = self._create_state(model)
+        barrier()  # no rank reads a checkpoint that rank 0 still writes
         last_epoch = self._load_checkpoint(resume_model or save_model_path,
                                            state)
+        if torch.distributed.is_initialized():
+            unused = data_parallel(state, input_dim)
+            logger.info(f"rank {self.rank} of {self.world} on {self.device}: "
+                        f"DDP over {torch.distributed.get_backend()}"
+                        + (f", {len(unused)} parameters outside the loss "
+                           f"(find_unused_parameters)" if unused else ''))
         train_step = make_train_step(accum_grad, frontend=frontend)
-        writer = _summary_writer(log_dir)
-        profile_steps = train_conf.get('profile_steps') or None
+        chief = self.rank == 0
+        writer = _summary_writer(log_dir) if chief else None
+        profile_steps = (train_conf.get('profile_steps') or None) if chief \
+            else None
         profiler = None
 
         best_error = float('inf')
@@ -484,6 +545,7 @@ class PPASRTrainer:
                                      fold_in(TRAIN_SEED, state.step))
                 self.step_losses.append(metrics['loss'])
                 batch_cost = time.time() - batch_start
+                self.step_costs.append((reader_cost, batch_cost))
                 train_times.append(batch_cost)
                 if batch_id % log_interval == 0:
                     loss = float(metrics['loss'])
@@ -504,7 +566,7 @@ class PPASRTrainer:
                         writer.add_scalar('Train/Loss', loss, state.step)
                         writer.add_scalar('Train/lr', lr, state.step)
                     train_times = []
-                if batch_id > 0 and batch_id % 10000 == 0:
+                if batch_id > 0 and batch_id % 10000 == 0 and chief:
                     self._save_checkpoint(save_model_path, state, epoch)
                 if self.stop_train:
                     break
@@ -529,12 +591,14 @@ class PPASRTrainer:
                 writer.add_scalar(f'Test/{metric_name}', error_rate,
                                   state.step)
                 writer.add_scalar('Test/Loss', test_loss, state.step)
-            self._save_checkpoint(save_model_path, state, epoch + 1,
-                                  error_rate, test_loss)
+            if chief:
+                self._save_checkpoint(save_model_path, state, epoch + 1,
+                                      error_rate, test_loss)
             if error_rate < best_error:
                 best_error = error_rate
-                self._save_checkpoint(save_model_path, state, epoch + 1,
-                                      error_rate, test_loss, best=True)
+                if chief:
+                    self._save_checkpoint(save_model_path, state, epoch + 1,
+                                          error_rate, test_loss, best=True)
             if self.stop_train:
                 break
         if profiler is not None:

@@ -4,9 +4,10 @@ Levenshtein (the card's machine has torch, numpy and scipy, and Python 3.12
 has no distutils), the server imports ``websockets`` only when it starts,
 and the predictor refuses ``use_gpu=True`` without a card. ``chip_smoke.py``
 also imports the fixture helpers in tests/make_torch_smoke_fixture.py,
-tests/make_torch_train_fixture.py, tests/make_torch_zoo_fixture.py and
+tests/make_torch_train_fixture.py, tests/make_torch_zoo_fixture.py,
 tests/make_torch_recipe_fixture.py, whose JAX imports sit inside
-functions; importing them loads none of the above."""
+functions, and tests/torch_ddp_worker.py and tests/torch_native_util.py,
+which import none; importing them loads none of the above."""
 import ast
 import glob
 import os
@@ -87,7 +88,9 @@ def test_import_leaves_no_forbidden_module_loaded():
             "ppasr_tpu_torch.utils.precision, ppasr_tpu_torch.ops.rnn, "
             "ppasr_tpu_torch.infer_utils.torch_export, "
             "ppasr_tpu_torch.infer_utils.inference_predictor, "
-            "ppasr_tpu_torch.infer_server;"
+            "ppasr_tpu_torch.infer_server, ppasr_tpu_torch.parallel, "
+            "ppasr_tpu_torch.parallel.distributed, "
+            "ppasr_tpu_torch.data.native_pipeline;"
             f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN + ('websockets',)!r}))")
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
