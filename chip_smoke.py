@@ -148,7 +148,25 @@ is not 0:
    against the Python item path under the same decisions, per transform
    within ``tests/torch_native_util.TOLERANCES``; wall per update and
    ``reader_cost`` against ``batch_cost``;
-16. deploy (tests/fixtures/torch_deploy.npz and its tolerances in
+16. tp, through ``tests/torch_tp_worker.py`` (one ``torch.distributed.run
+   --nproc_per_node=4`` launch, four gloo ranks all on cuda:0, the grids
+   made from one process group in one order): the committed flagship at
+   full width (256-dim, 12 blocks, 4 heads, 2048 FFN units, the 3 + 3-block
+   decoder at 1024, the 425-symbol vocabulary) in float32 with dropout and
+   dither off, on the training fixture's 8 utterances as raw audio through
+   B1, 2 updates of 4 × accum_grad 2 by SGD with momentum at lr 0.05
+   (``dw.PARITY_OPTIMIZER``), at DP2×TP2 and DP1×TP4 (Megatron tensor
+   parallelism, ``parallel/tensor_parallel.shard_module``), each against
+   the same global batches in this process: losses and gradient norms
+   within 1e-5 relative, the whole parameters gathered from the shards
+   within 1e-5, replicated parameters bit-equal across each model group;
+   then the DP4 beam decode (``parallel/distributed.decode_batch_sharded``,
+   two rows a rank, phase 8's beam conf with the trigram) of the
+   flagship's posteriors, from probabilities and from logits: texts equal
+   to this process's decode, scores within ``BEAM_SCORE_TOL``; wall per
+   update at each grid and alone (gloo through the host on one card: no
+   measure of NCCL between cards);
+17. deploy (tests/fixtures/torch_deploy.npz and its tolerances in
    tests/make_torch_deploy_fixture.py): int8: the committed flagship
    quantized by ``utils/quant``, its dequantized weights bit-equal to the
    JAX package's (the fixture's sha256), ``model.msgpack`` against
@@ -172,7 +190,7 @@ is not 0:
    (the engine featurizes on the host, as JAX's does); wall per request
    and per streamed piece; ``VADModel``: the fixture's seeded weights on
    the card, probabilities within ``VAD_TOL`` of JAX's;
-17. timing, after the paths, whose real-time factors are thus read
+18. timing, after the paths, whose real-time factors are thus read
    before the process first runs the profiler: at each shape of phase 3,
    three rounds time in turn the kernel, the plain version,
    ``torch.fft.rfft`` alone on the same frames, and the kernel again, each
@@ -180,11 +198,11 @@ is not 0:
    included) and the kernel and ``rfft`` also on the device alone
    (``device_ms``, from ``torch.profiler`` recording CUDA activity only);
    and the bound. The kernel table's ``ms`` is ``call_ms`` at the window,
-   its ``launches`` the launches of phases 4, 5, 8–11, 13, 14 and 16 (one
-   per streamed window, one per batch) and 12, 13 and 15 (one per
-   micro-batch of the training path; phase 15's counted in the ranks'
-   processes and reported back), and its ``max_abs_err`` the largest of
-   phases 3 and 5.
+   its ``launches`` the launches of phases 4, 5, 8–11, 13, 14 and 17 (one
+   per streamed window, one per batch) and 12, 13, 15 and 16 (one per
+   micro-batch of the training path, and one per decoding rank in 16;
+   those of phases 15 and 16 counted in the ranks' processes and reported
+   back), and its ``max_abs_err`` the largest of phases 3 and 5.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the one before it the kernel table as JSON; the last line is
@@ -250,6 +268,7 @@ import make_torch_train_fixture as tf  # noqa: E402  (no JAX at import)
 import make_torch_zoo_fixture as zf  # noqa: E402  (no JAX at import)
 import torch_ddp_worker as dw  # noqa: E402  (no JAX)
 import torch_native_util as nu  # noqa: E402  (no JAX)
+import torch_tp_worker as tw  # noqa: E402  (no JAX)
 
 BUILD = os.path.join(ROOT, 'build')
 AUGMENTATION = os.path.join(ROOT, 'configs', 'augmentation.json')
@@ -496,7 +515,7 @@ def check_kernel(dev):
 
 
 def time_kernel(shapes):
-    """Phase 17: the timings of every shape of phase 3, beside its bound;
+    """Phase 18: the timings of every shape of phase 3, beside its bound;
     returns the table entry."""
     rows = []
     for case in shapes:
@@ -1996,6 +2015,110 @@ def ddp_path(card):
     return launches
 
 
+# --------------------------------------------------------------------- tp
+
+def tp_grid(card, work, n_data, n_model, one, one_whole):
+    """Tp phase, one grid: the ranks' reports against the process alone
+    (``one``, ``one_whole``). Returns the ranks' reports."""
+    name = f'flagship_{n_data}x{n_model}'
+    reps = tw.reports(work, name)
+    whole = np.load(os.path.join(work, f'{name}.rank0.params.npz'))
+
+    def rel(key):
+        return max(abs(a - b) / abs(b) for a, b in zip(reps[0][key],
+                                                       one[key]))
+    err = max(float(np.abs(whole[k] - v.numpy()).max())
+              for k, v in one_whole.items())
+    groups = {}
+    for r in reps:
+        groups.setdefault(r['data_index'], set()).add(r['replicated'])
+    print(f"  DP{n_data}xTP{n_model}: losses {reps[0]['losses']} within "
+          f"{rel('losses'):.3g}, gradient norms {reps[0]['grad_norms']} "
+          f"within {rel('grad_norms'):.3g} relative of the process alone "
+          f"(tolerance 1e-5); whole parameters within {err:.3g} "
+          f"(tolerance 1e-5); replicated parameters bit-equal across each "
+          f"model group {all(len(g) == 1 for g in groups.values())}; "
+          f"{reps[0]['n_sharded']} of the rank's tensors sharded; wall per "
+          f"update {[round(t, 4) for t in reps[0]['walls']]} s "
+          f"(gloo on one card, host clock; not NCCL between cards); "
+          f"{card}", flush=True)
+    if not (all(r['losses'] == reps[0]['losses']
+                and r['grad_norms'] == reps[0]['grad_norms'] for r in reps)
+            and rel('losses') <= 1e-5 and rel('grad_norms') <= 1e-5
+            and err <= 1e-5 and set(whole.files) == set(one_whole)
+            and all(len(g) == 1 for g in groups.values())
+            and all(r['n_sharded'] > 0 for r in reps)):
+        raise AssertionError(f"DP{n_data}xTP{n_model} disagrees with the "
+                             f"process alone")
+    return reps
+
+
+def tp_path(card, dev):
+    """Phase 16: tensor parallelism, four gloo ranks on cuda:0 under one
+    ``torch.distributed.run --nproc_per_node=4`` launch of
+    tests/torch_tp_worker.py (the committed flagship, float32, dropout and
+    dither off, raw audio through B1): DP2×TP2 and DP1×TP4 against the
+    same global batches in this process, then the DP4 beam decode of the
+    flagship's posteriors against this process's decode. Returns B1's
+    launches, the ranks' included."""
+    work = tempfile.mkdtemp(prefix='tp_', dir=BUILD)
+    grids = ((2, 2), (1, 4))
+    try:
+        spec = {'out': work, 'device': 'cuda:0',
+                'train': [['flagship', *g] for g in grids],
+                'decode': ['flagship']}
+        proc = tw.start(spec)
+        _, wall = timed(lambda: tw.finish(proc, timeout=600))
+        print(f"  the 4 ranks' launch: {wall:.2f} s, start to exit",
+              flush=True)
+        launches = fbank_cuda.launches
+        (one, one_whole), alone_s = timed(lambda: tw.train('flagship', dev))
+        print(f"  the process alone: losses {one['losses']}, gradient "
+              f"norms {one['grad_norms']}, wall per update "
+              f"{[round(t, 4) for t in one['walls']]} s ({alone_s:.2f} s "
+              f"with the build); {card}", flush=True)
+        moved = max(float((one_whole[k] - v).abs().max()) for k, v in
+                    convert_params(load_msgpack(tf.CHECKPOINT)).items())
+        if not moved > 100 * 1e-5:
+            raise AssertionError(f"2 updates moved the flagship by {moved}")
+        reps = [r for g in grids for r in tp_grid(card, work, *g, one,
+                                                  one_whole)]
+        dec, probs, logits, lens = tw.decode_inputs('flagship', dev)
+        want = dec.decode_batch(probs, lens)
+        want_l = dec.decode_batch_from_logits(logits, lens)
+        launches = fbank_cuda.launches - launches
+        decoded = tw.reports(work, 'decode')
+        got, got_l = (decoded[0]['flagship'][k]
+                      for k in ('results', 'from_logits'))
+        dscore = max(abs(a[0] - b[0]) for a, b in zip(got + got_l,
+                                                       want + want_l))
+        print(f"  DP4 beam decode (beam {dec.beam_size}, LM order "
+              f"{dec.lm_hash.order}) of 8 utterances, 2 a rank: texts "
+              f"equal to this process's from probabilities "
+              f"{[t for _, t in got] == [t for _, t in want]} and from "
+              f"logits {[t for _, t in got_l] == [t for _, t in want_l]}, "
+              f"max |Δscore| {dscore:.3g}", flush=True)
+        if not ([t for _, t in got] == [t for _, t in want]
+                and [t for _, t in got_l] == [t for _, t in want_l]
+                and all(d == decoded[0] for d in decoded)
+                and all(t for _, t in want)
+                and dscore <= fx.BEAM_SCORE_TOL):
+            raise AssertionError("the DP4 decode differs from the process "
+                                 "alone")
+        ranks = sum(r['launches'] for r in reps) \
+            + sum(d['launches'] for d in decoded)
+        want_ranks = 4 * 2 * tw.UPDATES * tw.ACCUM + 4
+        print(f"  B1 launches: {ranks} in the ranks (one per micro-batch "
+              f"and rank, one per decoding rank), {launches} here",
+              flush=True)
+        if ranks != want_ranks or launches != tw.UPDATES * tw.ACCUM + 1:
+            raise AssertionError(f"B1 launched {ranks} times in the ranks "
+                                 f"(want {want_ranks}) and {launches} here")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return ranks + launches
+
+
 # ----------------------------------------------------------------- deploy
 
 def pt2_sizes(directory):
@@ -2292,7 +2415,7 @@ def deploy_vad(card, ddata):
 
 
 def deploy_path(card, pred, artifact, data, pcms):
-    """Phase 16: the deployment path (``deploy_int8``,
+    """Phase 17: the deployment path (``deploy_int8``,
     ``deploy_programs``, ``deploy_server``, ``deploy_vad``). Returns B1's
     launches."""
     ddata = np.load(dfx.OUT)
@@ -2393,6 +2516,10 @@ def main():
     t0 = time.time()
     launches += ddp_path(card)
     phase('ddp', t0)
+
+    t0 = time.time()
+    launches += tp_path(card, dev)
+    phase('tp', t0)
 
     t0 = time.time()
     launches += deploy_path(card, pred, artifact, data, pcms)

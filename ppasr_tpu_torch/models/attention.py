@@ -12,6 +12,11 @@ The Squeezeformer's options (:33-50, :76-78): ``adaptive_scale`` applies
 ``ada_scale``·x + ``ada_bias`` to the query, key and value inputs;
 ``pos_bias`` gives ``linear_pos`` a bias; ``init_weights`` is its
 scale-aware init, U(±n_feat^-0.5) for every projection, biases included.
+
+Under tensor parallelism (``parallel/tensor_parallel.shard_module``) ``tp``
+is the mesh and the module computes its rank's ``n_head`` heads: each
+distinct input enters the model axis once, after the adaptive scale, the
+projections are column shards and ``linear_out`` reduces.
 """
 import math
 
@@ -19,9 +24,27 @@ import torch
 from torch import nn
 
 from ppasr_tpu_torch.models.base import Dropout, Linear
+from ppasr_tpu_torch.parallel.tensor_parallel import copy_to_model
+
+
+def attention_inputs(attn, query, key, value):
+    """An attention's inputs after its adaptive scale (``ada_scale``, if
+    it has one), in the model axis of its mesh ``tp``: one copy of each
+    distinct tensor (one for self-attention)."""
+    scale = getattr(attn, 'ada_scale', None)
+
+    def enter(x):
+        if scale is not None:
+            x = scale.to(x.dtype) * x + attn.ada_bias.to(x.dtype)
+        return copy_to_model(x, attn.tp)
+    query_in = enter(query)
+    key_in = query_in if key is query else enter(key)
+    return query_in, key_in, key_in if value is key else enter(value)
 
 
 class MultiHeadedAttention(nn.Module):
+    tp = None
+
     def __init__(self, n_head: int, n_feat: int, rel_pos: bool = False,
                  dropout_rate: float = 0.0, out_init_scale: float = 1.0,
                  adaptive_scale: bool = False, pos_bias: bool = False,
@@ -61,11 +84,7 @@ class MultiHeadedAttention(nn.Module):
         attend, S counting the cache; pos_emb [1 or B, S, D]; kv_cache
         (k, v) each [B, C, H, dk]. Returns (out [B, T1, D], (k_all, v_all)
         each [B, C+T2, H, dk])."""
-        if self.ada_scale is not None:
-            scale = self.ada_scale.to(query.dtype)
-            bias = self.ada_bias.to(query.dtype)
-            query, key, value = (scale * query + bias, scale * key + bias,
-                                 scale * value + bias)
+        query, key, value = attention_inputs(self, query, key, value)
         q = self._heads(query, self.linear_q)
         k = self._heads(key, self.linear_k)
         v = self._heads(value, self.linear_v)

@@ -26,8 +26,9 @@ biased variance over every other axis and moves the running statistics
 by 0.1 towards them; in ``eval()`` mode it uses the running statistics.
 Statistics, parameters and the arithmetic are float32, as for LayerNorm.
 Under a process group of more than one rank, training mode takes the
-moments of the global batch: the ranks' sums, sums of squares and counts
-are all-reduced, with a backward that all-reduces their gradients.
+moments of the global batch: the sums, sums of squares and counts of the
+ranks of ``stats_group`` (the world, or a grid's data group) are
+all-reduced, with a backward that all-reduces their gradients.
 
 ``init_parameters`` draws a fresh model from the JAX model's distributions:
 Kaiming uniform (fan in, gain 2) for Dense and Conv kernels, times
@@ -91,7 +92,10 @@ class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last axis
     (see the module docstring): ``weight``/``bias`` are flax's
     ``scale``/``bias``, the ``running_mean``/``running_var`` buffers its
-    ``batch_stats`` ``mean``/``var``."""
+    ``batch_stats`` ``mean``/``var``. ``stats_group`` is the process group
+    whose ranks hold the global batch (the world when None; the data group
+    of a (data, model) grid, ``train_state.data_parallel``)."""
+    stats_group = None
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -102,29 +106,42 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_mean', torch.zeros(num_features))
         self.register_buffer('running_var', torch.ones(num_features))
 
+    def _batch_moments(self, xf):
+        dims = tuple(range(xf.ndim - 1))
+        if world_size(self.stats_group) > 1:
+            # the global batch's moments, as GSPMD reduces them over the
+            # sharded batch axis in JAX
+            count = torch.full((1,), xf.numel() // xf.shape[-1],
+                               dtype=xf.dtype, device=xf.device)
+            sums = all_reduce_sum_with_grad(torch.cat(
+                [xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]),
+                self.stats_group)
+            c = xf.shape[-1]
+            mean = sums[:c] / sums[-1]
+            return mean, sums[c:2 * c] / sums[-1] - mean * mean
+        mean = xf.mean(dim=dims)
+        return mean, (xf * xf).mean(dim=dims) - mean * mean
+
+    def _update_running(self, mean, var):
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var, self.momentum)
+
+    def _running(self):
+        return self.running_mean, self.running_var
+
+    def _affine(self):
+        return self.weight, self.bias
+
     def forward(self, x):
         xf = x.float()
         if self.training:
-            dims = tuple(range(xf.ndim - 1))
-            if world_size() > 1:
-                # the global batch's moments, as GSPMD reduces them over
-                # the sharded batch axis in JAX
-                count = torch.full((1,), xf.numel() // xf.shape[-1],
-                                   dtype=xf.dtype, device=xf.device)
-                sums = all_reduce_sum_with_grad(torch.cat(
-                    [xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]))
-                c = xf.shape[-1]
-                mean = sums[:c] / sums[-1]
-                var = sums[c:2 * c] / sums[-1] - mean * mean
-            else:
-                mean = xf.mean(dim=dims)
-                var = (xf * xf).mean(dim=dims) - mean * mean
+            mean, var = self._batch_moments(xf)
             with torch.no_grad():
-                self.running_mean.lerp_(mean.detach(), self.momentum)
-                self.running_var.lerp_(var.detach(), self.momentum)
+                self._update_running(mean.detach(), var.detach())
         else:
-            mean, var = self.running_mean, self.running_var
-        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+            mean, var = self._running()
+        weight, bias = self._affine()
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * weight + bias
         return y.to(x.dtype)
 
 
@@ -165,12 +182,19 @@ class _CastAtUse:
     init_scale = 1.0
     init_bound = None
 
+    def _weight(self):
+        """The weight at use (a tensor-parallel layer gathers it here)."""
+        return self.weight
+
+    def _bias(self):
+        return self.bias
+
     def _cast(self, x):
+        weight, bias = self._weight(), self._bias()
         dt = self.compute_dtype
         if dt is None:
-            return x, self.weight, self.bias
-        bias = None if self.bias is None else self.bias.to(dt)
-        return x.to(dt), self.weight.to(dt), bias
+            return x, weight, bias
+        return x.to(dt), weight.to(dt), None if bias is None else bias.to(dt)
 
 
 class Linear(_CastAtUse, nn.Linear):
@@ -200,8 +224,9 @@ class Conv2d(_CastAtUse, nn.Conv2d):
 
 class Embedding(_CastAtUse, nn.Embedding):
     def forward(self, ids):
-        weight = self.weight if self.compute_dtype is None \
-            else self.weight.to(self.compute_dtype)
+        weight = self._weight()
+        if self.compute_dtype is not None:
+            weight = weight.to(self.compute_dtype)
         return F.embedding(ids, weight)
 
 
@@ -244,7 +269,10 @@ class Dropout(nn.Module):
     73-100): active in ``train()`` mode; keep probability q/256 with
     q = round((1 − rate)·256) clipped to [1, 255]; the mask is
     ``bits < q`` for uint8 ``bits`` from ``self.generator`` (the default
-    generator when None)."""
+    generator when None). ``sharded`` marks a dropout over activations
+    that a tensor-parallel rank holds a shard of (attention heads, the FFN
+    hidden): it draws from the step's sharded stream."""
+    sharded = False
 
     def __init__(self, rate: float):
         super().__init__()
@@ -263,12 +291,15 @@ class Dropout(nn.Module):
 
 
 @contextlib.contextmanager
-def dropout_generator(module: nn.Module, generator):
+def dropout_generator(module: nn.Module, generator, sharded=None):
     """Every ``Dropout`` of ``module`` draws from ``generator`` inside the
-    block (the ``'dropout'`` stream of a train step)."""
+    block (the ``'dropout'`` stream of a train step), a ``sharded`` one
+    from ``sharded`` where given (the ``'dropout_sharded'`` stream of a
+    tensor-parallel step)."""
     drops = [m for m in module.modules() if isinstance(m, Dropout)]
     for m in drops:
-        m.generator = generator
+        m.generator = sharded if m.sharded and sharded is not None \
+            else generator
     try:
         yield
     finally:

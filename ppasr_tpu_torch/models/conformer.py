@@ -9,7 +9,7 @@ accuracy; it returns ``loss``, ``loss_att``, ``loss_ctc`` and
 ``th_accuracy`` (the last two None when ``ctc_weight`` is 1). Dropout and
 the dynamic chunk follow ``train()`` / ``eval()`` (the JAX
 ``deterministic``); ``rngs`` gives the step's ``'dropout'`` and ``'chunk'``
-generators.
+generators, and under tensor parallelism ``'dropout_sharded'``.
 
 ``streaming=True`` makes the encoder dynamic-chunk and causal (:52-55).
 Entry points: ``get_encoder_out`` (full context, :114-120),
@@ -94,7 +94,8 @@ class ConformerModel(ASRModel):
         text_lens [B]; ``rngs`` {'dropout', 'chunk'} generators. Returns
         {loss, loss_att, loss_ctc, th_accuracy}."""
         rngs = rngs or {}
-        with dropout_generator(self, rngs.get('dropout')):
+        with dropout_generator(self, rngs.get('dropout'),
+                               rngs.get('dropout_sharded')):
             return self._loss(speech, speech_lens, text, text_lens,
                               rngs.get('chunk'))
 

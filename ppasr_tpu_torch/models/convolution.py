@@ -16,6 +16,12 @@ module input by ``ada_scale`` and adds ``ada_bias`` ([1, 1, C] each);
 ``init_weights`` is its scale-aware init, U(±channels^-0.5) for the
 pointwise convs and U(±kernel^-0.5) for the depthwise one, biases
 included.
+
+Under tensor parallelism ``tp`` is the mesh and the module computes its
+rank's channel slice: ``pointwise_conv1`` holds the rank's slice of each
+GLU half, the depthwise conv and the norm its channels (the LayerNorm's
+statistics over the whole vector), and ``pointwise_conv2`` reduces. The
+causal cache stays the whole module input.
 """
 import torch
 from torch import nn
@@ -23,6 +29,7 @@ from torch.nn import functional as F
 
 from ppasr_tpu_torch.models.base import (BatchNorm, Conv1d, LayerNorm, Linear,
                                          swish)
+from ppasr_tpu_torch.parallel.tensor_parallel import copy_to_model
 
 
 def make_norm(norm: str, channels: int):
@@ -35,6 +42,8 @@ def make_norm(norm: str, channels: int):
 
 
 class ConvolutionModule(nn.Module):
+    tp = None
+
     def __init__(self, channels: int, kernel_size: int = 15,
                  activation=swish, norm: str = 'layer_norm',
                  causal: bool = False, out_init_scale: float = 1.0,
@@ -74,7 +83,7 @@ class ConvolutionModule(nn.Module):
         else:
             new_cache = x.new_zeros(x.shape[0], 0, x.shape[2])
 
-        y = self.pointwise_conv1(x)
+        y = self.pointwise_conv1(copy_to_model(x, self.tp))
         a, b = y.chunk(2, dim=-1)
         y = (a * torch.sigmoid(b)).transpose(1, 2)      # [B, C, T+lorder]
         if not self.causal:

@@ -35,7 +35,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ppasr_tpu_torch.models.attention import MultiHeadedAttention
+from ppasr_tpu_torch.models.attention import (MultiHeadedAttention,
+                                              attention_inputs)
 from ppasr_tpu_torch.models.base import (Conv1d, Dropout, GlobalCMVN,
                                          LayerNorm, Linear, compute_dtype_of,
                                          dtype_scalar, get_activation, swish)
@@ -46,6 +47,7 @@ from ppasr_tpu_torch.models.positionwise import PositionwiseFeedForward
 from ppasr_tpu_torch.models.subsampling import (SUBSAMPLING_CLASSES,
                                                 _ConvSubsampling)
 from ppasr_tpu_torch.ops.masks import add_optional_chunk_mask, make_non_pad_mask
+from ppasr_tpu_torch.parallel.tensor_parallel import copy_to_model
 
 
 class EffConState(NamedTuple):
@@ -103,6 +105,8 @@ def _group(x, g):
 
 
 class GroupedRelPositionAttention(nn.Module):
+    tp = None
+
     def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0,
                  group_size: int = 3):
         super().__init__()
@@ -124,6 +128,7 @@ class GroupedRelPositionAttention(nn.Module):
                 kv_cache=None):
         """As ``MultiHeadedAttention.forward`` with rel-pos."""
         g, b = self.group_size, query.shape[0]
+        query, key, value = attention_inputs(self, query, key, value)
         q = self._heads(query, self.linear_q)
         k = self._heads(key, self.linear_k)
         v = self._heads(value, self.linear_v)
@@ -160,6 +165,8 @@ class GroupedRelPositionAttention(nn.Module):
 
 
 class StridedConvolutionModule(nn.Module):
+    tp = None
+
     def __init__(self, channels: int, kernel_size: int = 15,
                  activation=swish, norm: str = 'layer_norm',
                  causal: bool = False, stride: int = 1):
@@ -189,7 +196,7 @@ class StridedConvolutionModule(nn.Module):
             new_cache = x[:, x.shape[1] - self.lorder:, :]
         else:
             new_cache = x.new_zeros(x.shape[0], 0, x.shape[2])
-        y = self.pointwise_conv1(x)
+        y = self.pointwise_conv1(copy_to_model(x, self.tp))
         a, b = y.chunk(2, dim=-1)
         y = (a * torch.sigmoid(b)).transpose(1, 2)
         if not self.causal:

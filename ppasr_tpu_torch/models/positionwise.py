@@ -3,14 +3,19 @@ ppasr_tpu/models/positionwise.py:10-47). ``out_init_scale`` is the
 depth-scaled init of ``w_2``. The Squeezeformer's options: ``adaptive_scale``
 (``ada_scale``·x + ``ada_bias`` on the input, :29-31) and ``init_weights``,
 its scale-aware init U(±idim^-0.5) for ``w_1`` and U(±hidden^-0.5) for
-``w_2``, biases included."""
+``w_2``, biases included. Under tensor parallelism ``tp`` is the mesh: the
+input enters the model axis after the adaptive scale, ``w_1`` is a column
+shard and ``w_2`` reduces."""
 import torch
 from torch import nn
 
 from ppasr_tpu_torch.models.base import Dropout, Linear, swish
+from ppasr_tpu_torch.parallel.tensor_parallel import copy_to_model
 
 
 class PositionwiseFeedForward(nn.Module):
+    tp = None
+
     def __init__(self, idim: int, hidden_units: int, activation=swish,
                  dropout_rate: float = 0.0, out_init_scale: float = 1.0,
                  adaptive_scale: bool = False, init_weights: bool = False):
@@ -31,4 +36,5 @@ class PositionwiseFeedForward(nn.Module):
     def forward(self, x):
         if self.ada_scale is not None:
             x = self.ada_scale.to(x.dtype) * x + self.ada_bias.to(x.dtype)
+        x = copy_to_model(x, self.tp)
         return self.w_2(self.dropout(self.activation(self.w_1(x))))

@@ -19,6 +19,7 @@ The lr is set on every update from the schedule (``train_state``).
 import torch
 
 from ppasr_tpu_torch.optimizer.scheduler import build_schedule
+from ppasr_tpu_torch.parallel.distributed import all_reduce_sum
 
 
 def build_optimizer(params, optimizer_conf, grad_clip: float = 5.0):
@@ -39,14 +40,28 @@ def build_optimizer(params, optimizer_conf, grad_clip: float = 5.0):
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads, max_norm: float, sharded=None,
+                        group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: g ← g·(max / ‖g‖) where
     ‖g‖ ≥ max, g unchanged where not (one rounding in another order than
     optax's (g / ‖g‖)·max). Returns ‖g‖ (float32, before clipping) as a
-    tensor, without reading it on the host."""
-    grads = [g for g in grads if g is not None]
-    norm = torch.linalg.vector_norm(torch.stack(
-        [n.float() for n in torch._foreach_norm(grads)]))
+    tensor, without reading it on the host.
+
+    Under tensor parallelism ``sharded`` flags the gradients that are this
+    rank's shards: ‖g‖² is then their squares summed over the model
+    ``group`` plus the replicated gradients' squares once, the whole
+    model's norm on every rank."""
+    keep = [i for i, g in enumerate(grads) if g is not None]
+    grads = [grads[i] for i in keep]
+    norms = torch.stack([n.float() for n in torch._foreach_norm(grads)])
+    if sharded is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        mask = torch.tensor([bool(sharded[i]) for i in keep],
+                            device=norms.device)
+        squares = norms * norms
+        shards = all_reduce_sum(squares[mask].sum().reshape(1), group)
+        norm = torch.sqrt(shards[0] + squares[~mask].sum())
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     torch._foreach_mul_(grads, scale)

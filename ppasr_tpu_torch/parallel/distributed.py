@@ -14,6 +14,13 @@ has cards (``LOCAL_WORLD_SIZE`` above the count), which NCCL refuses: rank
 
 Where the JAX package shards one process's batch over its local devices,
 the port runs one process per card.
+
+Every collective here takes its process group explicitly (``group``, the
+world when None): a (data, model) grid (``parallel/mesh.py``) reduces the
+global batch's statistics over its data group and the tensor-parallel
+activations over its model group. ``decode_batch_sharded`` is the
+batch-sharded beam decode: each rank decodes its own rows and only the
+texts and scores cross the ranks.
 """
 import os
 
@@ -56,9 +63,10 @@ def init_distributed(use_gpu: bool = True):
     return rank, world, device
 
 
-def world_size() -> int:
-    """The process group's size; 1 without one."""
-    return dist.get_world_size() if dist.is_initialized() else 1
+def world_size(group=None) -> int:
+    """The size of ``group`` (the world when None); 1 without a process
+    group."""
+    return dist.get_world_size(group) if dist.is_initialized() else 1
 
 
 def barrier():
@@ -66,30 +74,78 @@ def barrier():
         dist.barrier()
 
 
-def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
-    """Sum over the ranks, in place (no gradient); the tensor as it is
-    without a process group."""
+def all_reduce_sum(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum over the ranks of ``group`` (the world when None), in place (no
+    gradient); the tensor as it is without a process group."""
     if dist.is_initialized():
-        dist.all_reduce(tensor, op=dist.ReduceOp.SUM)
+        dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=group)
     return tensor
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         out = x.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        dist.all_reduce(grad, op=dist.ReduceOp.SUM)
-        return grad
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
+        return grad, None
 
 
-def all_reduce_sum_with_grad(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the ranks whose backward sums the ranks' gradients: with
-    DDP's average of the parameters' gradients, the gradient of the mean
-    of the ranks' losses through a statistic of the global batch."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum_with_grad(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum over the ranks of ``group`` (the world when None) whose backward
+    sums the ranks' gradients: with DDP's average of the parameters'
+    gradients over that group, the gradient of the mean of the ranks'
+    losses through a statistic of the global batch."""
+    return _AllReduceSum.apply(x, group)
+
+
+def all_gather(tensor: torch.Tensor, dim: int = 0, group=None):
+    """The ranks' tensors of ``group`` (the world when None), each of one
+    shape, concatenated along ``dim`` in group-rank order (no gradient)."""
+    parts = [torch.empty_like(tensor) for _ in range(world_size(group))]
+    dist.all_gather(parts, tensor.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def all_gather_object(obj, group=None) -> list:
+    """The ranks' picklable objects of ``group`` (the world when None) in
+    group-rank order; ``[obj]`` without a process group."""
+    if not dist.is_initialized():
+        return [obj]
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def shard_rows(n: int, group=None) -> slice:
+    """This rank's contiguous rows of a batch of ``n`` split over ``group``
+    (the world when None): the first ``n mod size`` ranks take one row
+    more, as ``np.array_split`` splits."""
+    size = world_size(group)
+    rank = dist.get_rank(group) if dist.is_initialized() else 0
+    base, extra = divmod(n, size)
+    start = rank * base + min(rank, extra)
+    return slice(start, start + base + (rank < extra))
+
+
+def decode_batch_sharded(decoder, posteriors, lens, group=None,
+                         from_logits: bool = False) -> list:
+    """The batch-sharded beam decode (the counterpart of
+    tests/test_sharded_decode.py's posteriors sharded over the data axis):
+    every rank of ``group`` (the world when None) decodes its own
+    contiguous rows ``posteriors`` [b, T, V] (probabilities, or CTC logits
+    with ``from_logits``: ``decode_batch_from_logits``) and ``lens`` [b] on
+    its own device with ``decoder`` (a ``TorchBeamSearchDecoder``); only
+    the (score, text) results cross the ranks (``all_gather_object``),
+    never the posteriors. Returns the whole batch's results in batch order
+    (group-rank order, each rank's rows in order)."""
+    decode = decoder.decode_batch_from_logits if from_logits \
+        else decoder.decode_batch
+    local = decode(posteriors, lens) if len(lens) else []
+    return [r for part in all_gather_object(local, group) for r in part]

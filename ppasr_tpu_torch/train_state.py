@@ -39,6 +39,20 @@ arithmetic:
   is the loss over the global batch's tokens (JAX divides by the global
   count); ``th_accuracy`` is weighted the same way;
 - the metrics are averaged over the ranks, the global batch's values.
+
+On a (data, model) grid (``parallel/mesh.make_mesh``, the model sharded by
+``parallel/tensor_parallel.shard_module``), ``data_parallel(state,
+input_dim, mesh)`` runs DDP over the mesh's data group, and every
+reduction above takes the group it belongs to: "the ranks" are the data
+group (``state.rank`` is the data index, ``state.world`` the data size),
+BatchNorm's moments reduce over it, and the model index folds into a
+second dropout stream, ``'dropout_sharded'``, that only the dropouts over
+sharded activations draw from; the replicated regions' ``'dropout'`` and
+the ``'frontend'`` stream fold in the data index only, so that model peers
+draw alike there. The clip's norm sums the shards' squares over the model
+group and counts the replicated gradients once, after model index 0's
+replicated gradients are copied to its peers. Without a mesh the groups
+are the world.
 """
 import contextlib
 
@@ -48,7 +62,10 @@ import torch.distributed as dist
 
 from ppasr_tpu_torch.optimizer.factory import (build_optimizer,
                                                clip_by_global_norm)
+from ppasr_tpu_torch.models.base import BatchNorm
 from ppasr_tpu_torch.parallel.distributed import all_reduce_sum
+from ppasr_tpu_torch.parallel.tensor_parallel import (is_sharded,
+                                                      sync_replicated_grads)
 from ppasr_tpu_torch.predict import ieee_float32
 
 METRICS = ('loss', 'loss_att', 'loss_ctc', 'th_accuracy')
@@ -57,7 +74,8 @@ METRICS = ('loss', 'loss_att', 'loss_ctc', 'th_accuracy')
 class TrainState:
     """The model, its optimizer and schedule, the clip and the count of
     updates done (``step``); after ``data_parallel`` its DDP ``replica``,
-    this process's ``rank`` and the ``world`` size."""
+    this process's ``rank`` and the ``world`` size over the data-parallel
+    ranks, and the ``mesh`` (None: the world is the data group)."""
 
     def __init__(self, model, optimizer, schedule, grad_clip: float,
                  step: int = 0):
@@ -68,6 +86,7 @@ class TrainState:
         self.step = step
         self.replica = None
         self.rank, self.world = 0, 1
+        self.mesh = None
 
     @property
     def params(self):
@@ -90,10 +109,12 @@ def fold_in(seed: int, *data: int) -> int:
 
 
 def micro_rngs(seed: int, i: int, device, frontend: bool = False,
-               rank: int = None) -> dict:
+               rank: int = None, model_rank: int = None) -> dict:
     """Micro-step i's generators: 'dropout', 'chunk' (CPU) and, with a
-    frontend, 'frontend'; ``rank`` (given when there is more than one)
-    is folded into 'dropout' and 'frontend'."""
+    frontend, 'frontend'; ``rank`` (the data-parallel index, given when
+    there is more than one) is folded into 'dropout' and 'frontend'. With
+    ``model_rank`` (tensor parallelism) 'dropout_sharded' folds it into
+    'dropout'."""
     step_seed = fold_in(seed, i)
 
     def per_rank(k):
@@ -105,6 +126,9 @@ def micro_rngs(seed: int, i: int, device, frontend: bool = False,
                 fold_in(step_seed, 1))}
     if frontend:
         rngs['frontend'] = torch.Generator(device).manual_seed(per_rank(2))
+    if model_rank is not None:
+        rngs['dropout_sharded'] = torch.Generator(device).manual_seed(
+            fold_in(per_rank(0), model_rank))
     return rngs
 
 
@@ -133,20 +157,33 @@ def unused_parameters(model, input_dim: int, frames: int = 256) -> list:
     return [n for (n, _), g in zip(named, grads) if g is None]
 
 
-def data_parallel(state: TrainState, input_dim: int) -> list:
+def data_parallel(state: TrainState, input_dim: int, mesh=None) -> list:
     """Wrap ``state.model`` in ``DistributedDataParallel`` over the running
-    process group (a rank's own card, or the CPU under gloo). Buffers are
-    not broadcast: the CMVN is constant and ``BatchNorm``'s running
-    statistics move alike on every rank. ``find_unused_parameters`` is on
-    only where ``unused_parameters`` finds some. Returns their names."""
+    process group, or over ``mesh.data_group`` (not at all where it is one
+    rank), on a rank's own card or the CPU under gloo; BatchNorm's moments
+    reduce over the same group. Buffers are not broadcast: the CMVN is
+    constant and ``BatchNorm``'s running statistics move alike on every
+    rank. ``find_unused_parameters`` is on only where
+    ``unused_parameters`` finds some. Returns their names."""
     from torch.nn.parallel import DistributedDataParallel
     model = state.model
+    group = None if mesh is None else mesh.data_group
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.stats_group = group
+    state.mesh = mesh
+    if mesh is None:
+        state.rank, state.world = dist.get_rank(), dist.get_world_size()
+    else:
+        state.rank, state.world = mesh.data_index, mesh.n_data
+    if state.world == 1 and mesh is not None:
+        return []
     device = next(model.parameters()).device
     unused = unused_parameters(model, input_dim)
     state.replica = DistributedDataParallel(
         model, device_ids=[device.index] if device.type == 'cuda' else None,
-        broadcast_buffers=False, find_unused_parameters=bool(unused))
-    state.rank, state.world = dist.get_rank(), dist.get_world_size()
+        broadcast_buffers=False, find_unused_parameters=bool(unused),
+        process_group=group)
     return unused
 
 
@@ -164,19 +201,24 @@ def make_train_step(accum_grad: int = 1, frontend=None,
         model = state.model
         net = model if state.replica is None else state.replica
         multi = state.world > 1
+        mesh = state.mesh
+        data_group = None if mesh is None else mesh.data_group
+        tp = mesh is not None and mesh.n_model > 1
         device = next(model.parameters()).device
         model.train(not deterministic)
         if multi:
             # each micro-step's decoder targets (the texts and their <eos>)
             # here and over every rank
             tokens = (batches['text_lens'] + 1).sum(dim=1).float()
-            share = tokens * state.world / all_reduce_sum(tokens.clone())
+            share = tokens * state.world / all_reduce_sum(tokens.clone(),
+                                                          data_group)
         sums = {}
         with ieee_float32():
             for i in range(accum_grad):
                 batch = {k: v[i] for k, v in batches.items()}
                 rngs = micro_rngs(seed, i, device, frontend is not None,
-                                  state.rank if multi else None)
+                                  state.rank if multi else None,
+                                  mesh.model_index if tp else None)
                 if frontend is not None and 'wav' in batch:
                     speech, speech_lens = frontend(
                         batch['wav'], batch['wav_lens'], rngs['frontend'],
@@ -201,9 +243,14 @@ def make_train_step(accum_grad: int = 1, frontend=None,
                 if p.grad is None:       # optax decays it all the same
                     p.grad = torch.zeros_like(p)
             grads = [p.grad for p in params]
+            if tp:
+                sync_replicated_grads(params, mesh)
             if accum_grad > 1:
                 torch._foreach_div_(grads, float(accum_grad))
-            grad_norm = clip_by_global_norm(grads, state.grad_clip)
+            grad_norm = clip_by_global_norm(
+                grads, state.grad_clip,
+                [is_sharded(p) for p in params] if tp else None,
+                mesh.model_group if tp else None)
             lr = state.schedule(state.step)
             for group in state.optimizer.param_groups:
                 group['lr'] = lr
@@ -212,8 +259,8 @@ def make_train_step(accum_grad: int = 1, frontend=None,
         state.step += 1
         metrics = {k: v / accum_grad for k, v in sums.items()}
         if multi:
-            mean = all_reduce_sum(torch.stack([metrics[k] for k in METRICS])
-                                  ) / state.world
+            mean = all_reduce_sum(torch.stack([metrics[k] for k in METRICS]),
+                                  data_group) / state.world
             metrics = dict(zip(METRICS, mean.unbind()))
         metrics['grad_norm'] = grad_norm
         return metrics
