@@ -146,8 +146,7 @@ is not 0:
    ranks' parameters bit-equal, checkpoints from rank 0 only; (c) the native
    loader built here (g++) on the recipe phase's eleven utterances
    against the Python item path under the same decisions, per transform
-   within ``tests/torch_native_util.TOLERANCES``; wall per update and
-   ``reader_cost`` against ``batch_cost``;
+   within ``tests/torch_native_util.TOLERANCES``;
 16. tp, through ``tests/torch_tp_worker.py`` (one ``torch.distributed.run
    --nproc_per_node=4`` launch, four gloo ranks all on cuda:0, the grids
    made from one process group in one order): the committed flagship at
@@ -1863,17 +1862,7 @@ def ddp_start(conf):
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def ddp_costs(card, name, report):
-    """Prints a run's wall per update and reader cost beside batch cost."""
-    walls = [round(c, 4) for c in report['batch_costs']]
-    readers = [round(c, 4) for c in report['reader_costs']]
-    print(f"  {name}: wall per update {walls} s, reader_cost {readers} s "
-          f"against batch_cost (the loader's share "
-          f"{sum(report['reader_costs']) / sum(report['batch_costs']):.3f}); "
-          f"{card}", flush=True)
-
-
-def ddp_nccl(card, work):
+def ddp_nccl(work):
     """Ddp phase, (a): the flagship as committed (256 × 12 blocks, bf16 AMP,
     dropout, the device frontend with dither, SpecAugment and SpecSub,
     configs/augmentation.json's audio stages on the native loader),
@@ -1898,7 +1887,6 @@ def ddp_nccl(card, work):
               f"{report['losses']}, backend {report['backend']}, "
               f"{report['device']}, B1 launches {report['launches']}, "
               f"native batches {report['native_batches']}", flush=True)
-        ddp_costs(card, f'(a) {name}', report)
     alone, ranked = runs['alone'], runs['torchrun']
     if not (ranked['ddp'] and ranked['backend'] == 'nccl'
             and ranked['world'] == 1 and not alone['ddp']):
@@ -1915,7 +1903,7 @@ def ddp_nccl(card, work):
     return alone['launches'] + ranked['launches']
 
 
-def ddp_gloo(card, work):
+def ddp_gloo(work):
     """Ddp phase, (b): two gloo ranks both on cuda:0 under
     ``torch.distributed.run --nproc_per_node=2`` (more ranks than cards:
     gloo) against one process with the same global batch (8: 2 × accum_grad
@@ -1940,7 +1928,6 @@ def ddp_gloo(card, work):
         print(f"  (b) {name} process(es): {wall:.2f} s, losses "
               f"{[r['losses'] for r in reports[name]]}, devices "
               f"{[r['device'] for r in reports[name]]}", flush=True)
-        ddp_costs(card, f'(b) {name}, rank 0', reports[name][0])
     (one,), two = reports['one'], reports['two']
 
     def rel(key):
@@ -2001,10 +1988,10 @@ def ddp_path(card):
     try:
         dw.write_corpus(work)
         t0 = time.time()
-        launches = ddp_nccl(card, work)
+        launches = ddp_nccl(work)
         print(f"  (a): {time.time() - t0:.2f} s", flush=True)
         t0 = time.time()
-        launches += ddp_gloo(card, work)
+        launches += ddp_gloo(work)
         print(f"  (b): {time.time() - t0:.2f} s", flush=True)
         t0 = time.time()
         ddp_native(card, work)

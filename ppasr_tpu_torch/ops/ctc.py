@@ -13,10 +13,14 @@ ppasr_tpu/ops/ctc.py:18-174).
 
 Blank is 0, label padding is −1, ``LOG_EPSILON`` is −1e30 (not −inf, so no
 NaN reaches the gradient). The loss is the sum over the batch divided by B
-(``average_batch``), as the JAX package's. This is PyTorch code, as the JAX
-loss is XLA code; ``F.ctc_loss(reduction='sum') / B`` is the tests' oracle.
+(``average_batch``), as the JAX package's. Both losses record the span
+``loss.ctc`` (the forward only) while a profiler records (``utils/trace``).
+This is PyTorch code, as the JAX loss is XLA code;
+``F.ctc_loss(reduction='sum') / B`` is the tests' oracle.
 """
 import torch
+
+from ppasr_tpu_torch.utils.trace import span
 
 LOG_EPSILON = -1e30
 
@@ -99,11 +103,13 @@ def ctc_loss(log_probs: torch.Tensor, input_lengths: torch.Tensor,
     input_lengths [B], labels [B, U] padded with −1, label_lengths [B] →
     sum over the batch / B (or the [B] vector when ``average_batch`` is
     False)."""
-    ext, valid_s, can_skip = _extended_labels(labels, label_lengths, blank)
-    emit_all = torch.gather(log_probs, 2,
-                            ext[:, None, :].expand(-1, log_probs.shape[1], -1))
-    return _loss_from_emissions(emit_all, input_lengths, label_lengths,
-                                valid_s, can_skip, average_batch)
+    with span('loss.ctc'):
+        ext, valid_s, can_skip = _extended_labels(labels, label_lengths,
+                                                  blank)
+        emit_all = torch.gather(
+            log_probs, 2, ext[:, None, :].expand(-1, log_probs.shape[1], -1))
+        return _loss_from_emissions(emit_all, input_lengths, label_lengths,
+                                    valid_s, can_skip, average_batch)
 
 
 def ctc_loss_from_logits(logits: torch.Tensor, input_lengths: torch.Tensor,
@@ -112,7 +118,9 @@ def ctc_loss_from_logits(logits: torch.Tensor, input_lengths: torch.Tensor,
                          average_batch: bool = True) -> torch.Tensor:
     """``ctc_loss(log_softmax(logits.float()))`` in float32, from [B, T, V]
     logits in any float dtype; the gradient returns in the logits' dtype."""
-    ext, valid_s, can_skip = _extended_labels(labels, label_lengths, blank)
-    emit_all = EmissionsFromLogits.apply(logits, ext)
-    return _loss_from_emissions(emit_all, input_lengths, label_lengths,
-                                valid_s, can_skip, average_batch)
+    with span('loss.ctc'):
+        ext, valid_s, can_skip = _extended_labels(labels, label_lengths,
+                                                  blank)
+        emit_all = EmissionsFromLogits.apply(logits, ext)
+        return _loss_from_emissions(emit_all, input_lengths, label_lengths,
+                                    valid_s, can_skip, average_batch)

@@ -12,7 +12,11 @@
   (``ops/fbank_cuda.fbank_batch``); one encoder pass; greedy decoding with
   the argmax on the device, or the beam search, which the on-device
   backend runs from the CTC logits (``get_encoder_logits``, :401-416), or
-  attention rescoring; padding rows dropped.
+  attention rescoring; padding rows dropped. While a profiler records
+  (``utils/trace``) it records ``predict.waveform`` (load, gain, int16
+  rounding), ``predict.pad``, ``predict.upload``, ``predict.fbank``, or
+  ``predict.featurize`` with the host frontend, ``predict.encoder`` and
+  ``predict.decode``.
 - ``predict_long`` (:433-462): Silero VAD segments (``infer_utils/
   vad_predictor``) through ``predict_batch`` in groups of at most 32,
   joined with ``，``.
@@ -99,6 +103,7 @@ from ppasr_tpu_torch.utils.checkpoint import (convert_params,
 from ppasr_tpu_torch.utils.itn import inverse_normalize
 from ppasr_tpu_torch.utils.logger import setup_logger
 from ppasr_tpu_torch.utils.precision import ieee_float32  # noqa: F401
+from ppasr_tpu_torch.utils.trace import span
 
 logger = setup_logger(__name__)
 
@@ -321,43 +326,55 @@ class PPASRPredictor:
         n = len(audio_list)
         if self.use_device_frontend:
             wav_batch, wlens = self._waveform_batch(audio_list, sample_rate)
-            batch, lens = fbank_batch(
-                torch.from_numpy(wav_batch).to(self.device),
-                torch.from_numpy(wlens).to(self.device),
-                num_mel_bins=self.input_dim,
-                sample_rate=self.audio_featurizer._target_sample_rate)
+            with span('predict.upload'):
+                wavs = torch.from_numpy(wav_batch).to(self.device)
+                wlens = torch.from_numpy(wlens).to(self.device)
+            with span('predict.fbank'):
+                batch, lens = fbank_batch(
+                    wavs, wlens, num_mel_bins=self.input_dim,
+                    sample_rate=self.audio_featurizer._target_sample_rate)
+            del wavs, wlens     # the encoder's peak holds no waveforms
         else:
-            feats = [self.audio_featurizer.featurize(
-                self._load_audio(a, sample_rate)) for a in audio_list]
-            max_t = max(f.shape[0] for f in feats)
-            bucket = max(self.time_bucket_frames,
-                         int(math.ceil(max_t / self.time_bucket_frames))
-                         * self.time_bucket_frames)
-            padded = np.zeros((_batch_bucket(n), bucket, feats[0].shape[1]),
-                              np.float32)
-            flens = np.zeros((padded.shape[0],), np.int32)
-            for i, f in enumerate(feats):
-                padded[i, :f.shape[0]] = f
-                flens[i] = f.shape[0]
-            batch = torch.from_numpy(padded).to(self.device)
-            lens = torch.from_numpy(flens).to(self.device)
+            with span('predict.featurize'):
+                feats = [self.audio_featurizer.featurize(
+                    self._load_audio(a, sample_rate)) for a in audio_list]
+            with span('predict.pad'):
+                max_t = max(f.shape[0] for f in feats)
+                bucket = max(self.time_bucket_frames,
+                             int(math.ceil(max_t / self.time_bucket_frames))
+                             * self.time_bucket_frames)
+                padded = np.zeros((_batch_bucket(n), bucket,
+                                   feats[0].shape[1]), np.float32)
+                flens = np.zeros((padded.shape[0],), np.int32)
+                for i, f in enumerate(feats):
+                    padded[i, :f.shape[0]] = f
+                    flens[i] = f.shape[0]
+            with span('predict.upload'):
+                batch = torch.from_numpy(padded).to(self.device)
+                lens = torch.from_numpy(flens).to(self.device)
         if self._rescorer is not None:
-            enc, probs, olens = self.model.encode_for_rescore(batch, lens)
-            results = self._rescorer.decode_batch_rescore(
-                enc[:n], probs[:n], olens[:n])
+            with span('predict.encoder'):
+                enc, probs, olens = self.model.encode_for_rescore(batch, lens)
+            with span('predict.decode'):
+                results = self._rescorer.decode_batch_rescore(
+                    enc[:n], probs[:n], olens[:n])
         elif isinstance(self._beam_decoder, TorchBeamSearchDecoder):
             # softmax-free: candidates straight from the CTC logits
-            logits, olens = self.model.get_encoder_logits(batch, lens)
-            results = self._beam_decoder.decode_batch_from_logits(
-                logits[:n], olens[:n])
-        elif self._beam_decoder is not None:
-            probs, olens = self.model.get_encoder_out(batch, lens)
-            results = self._beam_decoder.decode_batch(
-                probs[:n].cpu().numpy(), olens[:n].cpu().numpy())
+            with span('predict.encoder'):
+                logits, olens = self.model.get_encoder_logits(batch, lens)
+            with span('predict.decode'):
+                results = self._beam_decoder.decode_batch_from_logits(
+                    logits[:n], olens[:n])
         else:
-            probs, olens = self.model.get_encoder_out(batch, lens)
-            results = greedy_decoder_batch(probs[:n], olens[:n].cpu().numpy(),
-                                           self.vocab_list)
+            with span('predict.encoder'):
+                probs, olens = self.model.get_encoder_out(batch, lens)
+            with span('predict.decode'):
+                if self._beam_decoder is not None:
+                    results = self._beam_decoder.decode_batch(
+                        probs[:n].cpu().numpy(), olens[:n].cpu().numpy())
+                else:
+                    results = greedy_decoder_batch(
+                        probs[:n], olens[:n].cpu().numpy(), self.vocab_list)
         return [self._result(text, score, use_pun, is_itn)
                 for score, text in results]
 
@@ -395,16 +412,19 @@ class PPASRPredictor:
         waveforms, zero-padded, with S a multiple of
         ``time_bucket_frames``·160 samples; [b_bucket] int32 sample
         counts), as ppasr_tpu/predict.py:366-377 builds it."""
-        wavs = [self.audio_featurizer.waveform(
-            self._load_audio(a, sample_rate)) for a in audio_list]
-        samp_bucket = self.time_bucket_frames * 160
-        max_s = max(max(len(w) for w in wavs), 400)
-        max_s = int(math.ceil(max_s / samp_bucket)) * samp_bucket
-        wav_batch = np.zeros((_batch_bucket(len(wavs)), max_s), np.float32)
-        wlens = np.zeros((wav_batch.shape[0],), np.int32)
-        for i, w in enumerate(wavs):
-            wav_batch[i, :len(w)] = w
-            wlens[i] = len(w)
+        with span('predict.waveform'):
+            wavs = [self.audio_featurizer.waveform(
+                self._load_audio(a, sample_rate)) for a in audio_list]
+        with span('predict.pad'):
+            samp_bucket = self.time_bucket_frames * 160
+            max_s = max(max(len(w) for w in wavs), 400)
+            max_s = int(math.ceil(max_s / samp_bucket)) * samp_bucket
+            wav_batch = np.zeros((_batch_bucket(len(wavs)), max_s),
+                                 np.float32)
+            wlens = np.zeros((wav_batch.shape[0],), np.int32)
+            for i, w in enumerate(wavs):
+                wav_batch[i, :len(w)] = w
+                wlens[i] = len(w)
         return wav_batch, wlens
 
     # ------------------------------------------------------------ streaming

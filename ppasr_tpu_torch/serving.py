@@ -24,6 +24,14 @@ also keeps every slot's encoder output and posteriors on the device, and a
 stream's last ``feed`` (``is_end``) returns the predictor's rescorer's pass
 over them (:47-52, :62, :76-79, :135-143); the partial results stay
 greedy. The engine runs in the predictor's compute dtype.
+
+``ticks``, ``windows`` and ``tick_seconds`` count the batched chunk steps,
+the slot-windows they served and their host time. While a profiler
+records (``utils/trace``), each ``feed`` records ``engine.feed`` around
+``engine.lock`` (the wait for the lock), ``engine.featurize`` and one
+``engine.tick`` per batched step, which holds ``engine.assemble``,
+``engine.upload``, ``engine.step``, ``engine.select``, ``engine.fetch`` and
+``engine.decode``.
 """
 import threading
 import time
@@ -39,6 +47,7 @@ from ppasr_tpu_torch.models.deepspeech2 import DS2State
 from ppasr_tpu_torch.models.efficient_conformer import EffConState
 from ppasr_tpu_torch.models.squeezeformer import SqueezeformerState
 from ppasr_tpu_torch.predict import ieee_float32
+from ppasr_tpu_torch.utils.trace import span
 
 
 def tree_map(fn, *trees):
@@ -77,6 +86,7 @@ class StreamingBatchEngine:
         self._gain = {}        # slot -> [sq_sum, n]
         self._rescore_chunks = {}  # slot -> ([enc...], [probs...])
         self.ticks = 0         # batched chunk steps run
+        self.windows = 0       # slot-windows those steps served
         self.tick_seconds = 0.0  # host clock over them, results on the host
 
     @staticmethod
@@ -143,38 +153,45 @@ class StreamingBatchEngine:
         """Feed PCM (bytes or float ndarray) for one stream; returns the
         stream's current hypothesis {'text', 'score'}, at ``is_end`` the
         rescored one when the predictor rescores."""
-        if isinstance(audio_data, bytes):
-            audio = AudioSegment.from_pcm_bytes(audio_data,
-                                                sample_rate=sample_rate)
-        else:
-            audio = AudioSegment.from_ndarray(
-                np.asarray(audio_data, np.float32), sample_rate)
-        if audio.sample_rate != 16000:
-            audio.resample(16000)
-        s = audio.samples
-        with self._lock:
-            if slot not in self._gain:
-                raise KeyError(f"stream slot {slot} is not open")
-            if len(s):
-                self._gain[slot][0] += float(
-                    np.sum(s.astype(np.float64) ** 2))
-                self._gain[slot][1] += len(s)
-            self._wav_tail[slot] = np.concatenate([self._wav_tail[slot], s])
+        with span('engine.feed'):
+            if isinstance(audio_data, bytes):
+                audio = AudioSegment.from_pcm_bytes(audio_data,
+                                                    sample_rate=sample_rate)
+            else:
+                audio = AudioSegment.from_ndarray(
+                    np.asarray(audio_data, np.float32), sample_rate)
+            if audio.sample_rate != 16000:
+                audio.resample(16000)
+            s = audio.samples
+            with span('engine.lock'):
+                self._lock.acquire()
+            try:
+                if slot not in self._gain:
+                    raise KeyError(f"stream slot {slot} is not open")
+                if len(s):
+                    self._gain[slot][0] += float(
+                        np.sum(s.astype(np.float64) ** 2))
+                    self._gain[slot][1] += len(s)
+                self._wav_tail[slot] = np.concatenate(
+                    [self._wav_tail[slot], s])
 
-            if len(self._wav_tail[slot]) >= 400:
-                seg = AudioSegment(self._wav_tail[slot].copy(), 16000)
-                feat = self.p.stream_featurizer.featurize(seg)
-                t = feat.shape[0]
-                if t > 0:
-                    self._wav_tail[slot] = self._wav_tail[slot][t * 160:]
-                    buf = self._buffers[slot]
-                    self._buffers[slot] = feat if buf is None \
-                        else np.concatenate([buf, feat])
+                if len(self._wav_tail[slot]) >= 400:
+                    seg = AudioSegment(self._wav_tail[slot].copy(), 16000)
+                    with span('engine.featurize'):
+                        feat = self.p.stream_featurizer.featurize(seg)
+                    t = feat.shape[0]
+                    if t > 0:
+                        self._wav_tail[slot] = self._wav_tail[slot][t * 160:]
+                        buf = self._buffers[slot]
+                        self._buffers[slot] = feat if buf is None \
+                            else np.concatenate([buf, feat])
 
-            self._tick(flush_slot=slot if is_end else None)
-            score, text = self._decoders[slot].current()
-            if is_end and self._rescore_chunks.get(slot, ([], []))[1]:
-                score, text = self._rescore(slot)
+                self._tick(flush_slot=slot if is_end else None)
+                score, text = self._decoders[slot].current()
+                if is_end and self._rescore_chunks.get(slot, ([], []))[1]:
+                    score, text = self._rescore(slot)
+            finally:
+                self._lock.release()
         return {'text': text, 'score': score}
 
     @torch.inference_mode()
@@ -204,52 +221,66 @@ class StreamingBatchEngine:
         win, stride, ctx = (self.p.decoding_window, self.p.stride,
                             self.p.context)
         while True:
-            ready = []
-            windows = np.zeros((self.max_streams, win,
-                                self.p.input_dim), np.float32)
-            valid = np.zeros((self.max_streams,), np.int32)
-            for slot, buf in list(self._buffers.items()):
+            ready = []          # (slot, whether a whole window is there)
+            for slot, buf in self._buffers.items():
                 if buf is None:
                     continue
-                if buf.shape[0] >= win:
-                    windows[slot] = buf[:win] + self._gain_offset(slot)
-                    valid[slot] = win
-                    self._buffers[slot] = buf[stride:]
-                    ready.append(slot)
-                elif flush_slot == slot and buf.shape[0] >= ctx:
-                    t = buf.shape[0]
-                    windows[slot, :t] = buf + self._gain_offset(slot)
-                    valid[slot] = t
-                    self._buffers[slot] = None
-                    ready.append(slot)
+                full = buf.shape[0] >= win
+                if full or (flush_slot == slot and buf.shape[0] >= ctx):
+                    ready.append((slot, full))
             if not ready:
                 return
-            t0 = time.perf_counter()
-            mask = torch.from_numpy(valid > 0).to(self.device)
-            xs = torch.from_numpy(windows).to(self.device)
-            enc = None
-            if self._ds2:
-                probs, _, new_state = self.model.get_encoder_out_chunk(
-                    xs, torch.full((self.max_streams,), win,
-                                   device=self.device), self._batch_state)
-            elif self._rescorer is None:
-                probs, new_state = self.model.get_encoder_out_chunk(
-                    xs, self._batch_state)
-            else:
-                enc, probs, new_state = \
-                    self.model.get_encoder_out_chunk_rescore(
-                        xs, self._batch_state)
-            self._batch_state = self._select(mask, new_state,
-                                             self._batch_state)
-            probs_np = probs.cpu().numpy()
-            self.ticks += 1
-            self.tick_seconds += time.perf_counter() - t0
-            factor = 1 if self._ds2 else self.model.output_factor
-            for slot in ready:
-                n_out = ((int(valid[slot]) - ctx) // self.p.subsampling) + 1
-                n_out = max((n_out + factor - 1) // factor, 0)
-                self._decoders[slot].decode_chunk(probs_np[slot][:n_out])
-                if enc is not None and slot in self._rescore_chunks:
-                    encs, prbs = self._rescore_chunks[slot]
-                    encs.append(enc[slot, :n_out])
-                    prbs.append(probs[slot, :n_out])
+            with span('engine.tick'):
+                with span('engine.assemble'):
+                    windows = np.zeros((self.max_streams, win,
+                                        self.p.input_dim), np.float32)
+                    valid = np.zeros((self.max_streams,), np.int32)
+                    for slot, full in ready:
+                        buf = self._buffers[slot]
+                        if full:
+                            windows[slot] = buf[:win] + self._gain_offset(slot)
+                            valid[slot] = win
+                            self._buffers[slot] = buf[stride:]
+                        else:       # the flushed stream's last frames
+                            t = buf.shape[0]
+                            windows[slot, :t] = buf + self._gain_offset(slot)
+                            valid[slot] = t
+                            self._buffers[slot] = None
+                t0 = time.perf_counter()
+                with span('engine.upload'):
+                    mask = torch.from_numpy(valid > 0).to(self.device)
+                    xs = torch.from_numpy(windows).to(self.device)
+                enc = None
+                with span('engine.step'):
+                    if self._ds2:
+                        probs, _, new_state = self.model.get_encoder_out_chunk(
+                            xs, torch.full((self.max_streams,), win,
+                                           device=self.device),
+                            self._batch_state)
+                    elif self._rescorer is None:
+                        probs, new_state = self.model.get_encoder_out_chunk(
+                            xs, self._batch_state)
+                    else:
+                        enc, probs, new_state = \
+                            self.model.get_encoder_out_chunk_rescore(
+                                xs, self._batch_state)
+                with span('engine.select'):
+                    self._batch_state = self._select(mask, new_state,
+                                                     self._batch_state)
+                with span('engine.fetch'):
+                    probs_np = probs.cpu().numpy()
+                self.ticks += 1
+                self.windows += len(ready)
+                self.tick_seconds += time.perf_counter() - t0
+                factor = 1 if self._ds2 else self.model.output_factor
+                with span('engine.decode'):
+                    for slot, _ in ready:
+                        n_out = ((int(valid[slot]) - ctx)
+                                 // self.p.subsampling) + 1
+                        n_out = max((n_out + factor - 1) // factor, 0)
+                        self._decoders[slot].decode_chunk(
+                            probs_np[slot][:n_out])
+                        if enc is not None and slot in self._rescore_chunks:
+                            encs, prbs = self._rescore_chunks[slot]
+                            encs.append(enc[slot, :n_out])
+                            prbs.append(probs[slot, :n_out])

@@ -19,7 +19,11 @@ device with no gradient; else features ('speech', 'speech_lens').
 
 The step runs under ``predict.ieee_float32()``: float32 matmuls and
 convolutions in full float32 and bf16 products reduced in float32, as XLA
-computes them.
+computes them. While a profiler records (``utils/trace``), each micro-step
+records ``train.frontend``, ``train.forward`` and ``train.backward``, and
+the update ``train.optimizer`` (the division by ``accum_grad``, the
+replicated gradients' sync, the clip, the optimizer's step and
+``zero_grad``).
 
 Data parallelism across processes (the counterpart of ``data_mesh``,
 ``shard_batch`` and ``replicate``, :106-135): ``data_parallel`` wraps the
@@ -67,6 +71,7 @@ from ppasr_tpu_torch.parallel.distributed import all_reduce_sum
 from ppasr_tpu_torch.parallel.tensor_parallel import (is_sharded,
                                                       sync_replicated_grads)
 from ppasr_tpu_torch.predict import ieee_float32
+from ppasr_tpu_torch.utils.trace import span
 
 METRICS = ('loss', 'loss_att', 'loss_ctc', 'th_accuracy')
 
@@ -220,42 +225,46 @@ def make_train_step(accum_grad: int = 1, frontend=None,
                                   state.rank if multi else None,
                                   mesh.model_index if tp else None)
                 if frontend is not None and 'wav' in batch:
-                    speech, speech_lens = frontend(
-                        batch['wav'], batch['wav_lens'], rngs['frontend'],
-                        deterministic=deterministic)
+                    with span('train.frontend'):
+                        speech, speech_lens = frontend(
+                            batch['wav'], batch['wav_lens'],
+                            rngs['frontend'], deterministic=deterministic)
                 else:
                     speech, speech_lens = batch['speech'], batch['speech_lens']
                 sync = state.replica is None or i == accum_grad - 1
                 with contextlib.nullcontext() if sync else \
                         state.replica.no_sync():
-                    out = net(speech, speech_lens, batch['text'],
-                              batch['text_lens'], rngs=rngs)
-                    if multi:
-                        out = _global_terms(model, out, share[i])
-                    out['loss'].backward()
+                    with span('train.forward'):
+                        out = net(speech, speech_lens, batch['text'],
+                                  batch['text_lens'], rngs=rngs)
+                        if multi:
+                            out = _global_terms(model, out, share[i])
+                    with span('train.backward'):
+                        out['loss'].backward()
                 for k in METRICS:
                     v = out[k]
                     v = torch.zeros((), device=device) if v is None \
                         else v.detach().float()
                     sums[k] = v if i == 0 else sums[k] + v
-            params = state.params
-            for p in params:
-                if p.grad is None:       # optax decays it all the same
-                    p.grad = torch.zeros_like(p)
-            grads = [p.grad for p in params]
-            if tp:
-                sync_replicated_grads(params, mesh)
-            if accum_grad > 1:
-                torch._foreach_div_(grads, float(accum_grad))
-            grad_norm = clip_by_global_norm(
-                grads, state.grad_clip,
-                [is_sharded(p) for p in params] if tp else None,
-                mesh.model_group if tp else None)
-            lr = state.schedule(state.step)
-            for group in state.optimizer.param_groups:
-                group['lr'] = lr
-            state.optimizer.step()
-            state.optimizer.zero_grad(set_to_none=True)
+            with span('train.optimizer'):
+                params = state.params
+                for p in params:
+                    if p.grad is None:       # optax decays it all the same
+                        p.grad = torch.zeros_like(p)
+                grads = [p.grad for p in params]
+                if tp:
+                    sync_replicated_grads(params, mesh)
+                if accum_grad > 1:
+                    torch._foreach_div_(grads, float(accum_grad))
+                grad_norm = clip_by_global_norm(
+                    grads, state.grad_clip,
+                    [is_sharded(p) for p in params] if tp else None,
+                    mesh.model_group if tp else None)
+                lr = state.schedule(state.step)
+                for group in state.optimizer.param_groups:
+                    group['lr'] = lr
+                state.optimizer.step()
+                state.optimizer.zero_grad(set_to_none=True)
         state.step += 1
         metrics = {k: v / accum_grad for k, v in sums.items()}
         if multi:

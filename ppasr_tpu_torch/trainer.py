@@ -25,11 +25,12 @@ read 0 in the step's metrics, as in the JAX train step):
   (``train_probe_size``, txt manifests); checkpoints ``epoch_N``,
   ``last_model`` and ``best_model`` with rolling deletion; resume from
   ``last_model``; ``train_conf.profile_steps: [start, stop]``, one
-  ``torch.profiler`` trace (CPU and, on a card, CUDA activity) into
-  ``<log_dir>/profile``; the scalars ``Train/Loss``, ``Train/lr``,
-  ``Train/<metric>``, ``Test/<metric>`` and ``Test/Loss`` through
-  tensorboardX or ``torch.utils.tensorboard`` when one imports (else one
-  warning). The eval decoder is built before the first step.
+  ``torch.profiler`` trace (CPU and, on a card, CUDA activity, with the
+  train step's ``utils/trace`` spans) into ``<log_dir>/profile``; the
+  scalars ``Train/Loss``, ``Train/lr``, ``Train/<metric>``,
+  ``Test/<metric>`` and ``Test/Loss`` through tensorboardX or
+  ``torch.utils.tensorboard`` when one imports (else one warning). The
+  eval decoder is built before the first step.
 - ``evaluate`` (:710-870) → (error rate, mean loss), with the decoder
   that ``decoders/factory`` builds (:640-692): greedy; ``ctc_beam_search`` with
   ``backend`` ``'torch'`` (alias ``'jax'``, the default; from the CTC
@@ -148,7 +149,6 @@ class PPASRTrainer:
         self.stop_train = False
         self.stop_eval = False
         self.step_losses = []   # every update's loss, a 0-d device tensor
-        self.step_costs = []    # every update's (reader_cost, batch_cost) s
         self.eval_results = []  # the last evaluate's utterances
         self._eval_decoder_model = None
         self._eval_decoder = None
@@ -545,7 +545,6 @@ class PPASRTrainer:
                                      fold_in(TRAIN_SEED, state.step))
                 self.step_losses.append(metrics['loss'])
                 batch_cost = time.time() - batch_start
-                self.step_costs.append((reader_cost, batch_cost))
                 train_times.append(batch_cost)
                 if batch_id % log_interval == 0:
                     loss = float(metrics['loss'])

@@ -18,9 +18,11 @@ of the training fixture's utterances written as WAVs:
 - the CLI: ``--help`` and one run; ``use_gpu=True`` without a card raises,
   in the trainer and in the CLI with its default;
 - ``train_conf.profile_steps: [0, 1]`` writes one ``torch.profiler``
-  trace into ``<log_dir>/profile``, and the tensorboard scalars
-  ``Train/Loss``, ``Train/lr``, ``Train/cer``, ``Test/cer`` and
-  ``Test/Loss`` are written once per update or epoch into ``log_dir``.
+  trace into ``<log_dir>/profile`` that holds the train step's program
+  spans (``ppasr.train.*``, ``ppasr.loss.ctc``), which are off again
+  once it stops, and the tensorboard scalars ``Train/Loss``, ``Train/lr``,
+  ``Train/cer``, ``Test/cer`` and ``Test/Loss`` are written once per
+  update or epoch into ``log_dir``.
 """
 import json
 import os
@@ -40,6 +42,7 @@ from ppasr_tpu_torch import train as train_cli
 from ppasr_tpu_torch.config import load_config
 from ppasr_tpu_torch.data.audio import AudioSegment
 from ppasr_tpu_torch.trainer import PPASRTrainer
+from ppasr_tpu_torch.utils import trace
 from ppasr_tpu_torch.utils.checkpoint import (convert_params, export_params,
                                               load_msgpack,
                                               msgpack_serialize)
@@ -224,6 +227,11 @@ def test_profile_trace_and_scalars_written(trained):
     with open(d / 'log' / 'profile' / 'trace.json', encoding='utf-8') as f:
         events = json.load(f)['traceEvents']
     assert any('aten::' in str(e.get('name', '')) for e in events)
+    names = {str(e.get('name', '')) for e in events}
+    assert {'ppasr.train.frontend', 'ppasr.train.forward',
+            'ppasr.train.backward', 'ppasr.train.optimizer',
+            'ppasr.loss.ctc'} <= names
+    assert trace.span('train.forward') is trace._NULL
     acc = EventAccumulator(str(d / 'log'))
     acc.Reload()
     tags = acc.Tags()['scalars']

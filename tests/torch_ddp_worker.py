@@ -253,8 +253,6 @@ def run(argv, seed=0, dither=True):
         'local_losses': [float(v) for v in local_losses],
         'grad_norms': [float(v) for v in grad_norms],
         'stream_seeds': seeds,
-        'reader_costs': [c[0] for c in trainer.step_costs],
-        'batch_costs': [c[1] for c in trainer.step_costs],
         'launches': fbank_cuda.launches - launches,
         'native_batches': native[0], 'saves': saves, 'step': state.step,
         'n_params': sum(p.numel() for p in state.params),
