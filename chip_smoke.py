@@ -8,8 +8,9 @@ is not 0:
 
 1. card: CUDA present, ``nvidia-smi`` name and power limit, TF32 off for
    matmuls and cuDNN during the kernel check;
-2. build: kernel B1 (``ppasr_tpu_torch/csrc/fbank.cu``) with nvcc for
-   sm_90a, with ptxas' register and spill report;
+2. build: kernels B1 (``ppasr_tpu_torch/csrc/fbank.cu``) and C1
+   (``ppasr_tpu_torch/csrc/ctc.cu``) with nvcc for sm_90a, with ptxas'
+   register and spill report;
 3. kernel: B1 (a packed 256-point FFT, one warp per frame, and a banded
    mel projection) against its plain PyTorch version on the card and the
    host ``fbank_numpy`` at the main path's shape (one 67-frame streaming
@@ -17,7 +18,12 @@ is not 0:
    from a base pointer at an odd offset), at a 16 × 10 s batch (15,968
    frames, stride 400) and at the batch path's launch (``fbank_batch`` over
    16 rows of 80,000 samples: 7,998 frames at stride 160 over the flat
-   buffer);
+   buffer); then C1, the CTC lattice, at the training cell's micro-step
+   ([16, 398, 4,233] logits, mixed input lengths, up to 51 labels): the
+   loss and its gradient of the logits through ``ctc_loss_from_logits``
+   with the kernels against the plain version (the alpha loop with
+   autograd's gradient) on the card, within 1e-6
+   (tests/test_torch_ctc_cuda.py), two launches;
 4. main path: the committed flagship streaming Conformer (256-dim, 12
    blocks) through ``PPASRPredictor(use_gpu=True, use_device_frontend=True)``
    on the three utterances of tests/fixtures/torch_smoke_utts.npz, offline
@@ -201,7 +207,17 @@ is not 0:
    per streamed window, one per batch) and 12, 13, 15 and 16 (one per
    micro-batch of the training path, and one per decoding rank in 16;
    those of phases 15 and 16 counted in the ranks' processes and reported
-   back), and its ``max_abs_err`` the largest of phases 3 and 5.
+   back), and its ``max_abs_err`` the largest of phases 3 and 5. Then
+   C1's row at the cell's shape: three rounds time in turn the pair
+   (forward and backward through ``CTCLattice``, per call and on the
+   device), the plain version, ``F.ctc_loss`` forward and backward on
+   the same log-probs (``library_ms``; the port never calls it), and the
+   pair again; its bound counts the bytes the pair must move (emissions
+   in, their gradient out) over the memory rate, though what bounds it is
+   the chain of T dependent frames; its ``launches`` those of the
+   training paths of phases 12-14 (not the check of phase 3 nor this
+   timing), each phase checked to launch C1 twice for each of the models'
+   loss calls that takes a gradient and once for each that does not.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the one before it the kernel table as JSON; the last line is
@@ -209,6 +225,7 @@ the one before it the kernel table as JSON; the last line is
 ``build/`` (listed in .gitignore).
 """
 import asyncio
+import contextlib
 import http.client as http_client
 import io
 import json
@@ -225,6 +242,7 @@ import numpy as np
 import torch
 
 import ppasr_tpu_torch.decoders.greedy as greedy_module
+import ppasr_tpu_torch.models.ctc as models_ctc
 import ppasr_tpu_torch.predict as predict_module
 import ppasr_tpu_torch.trainer as trainer_module
 from ppasr_tpu_torch import create_data as create_data_cli
@@ -244,6 +262,7 @@ from ppasr_tpu_torch.infer_utils.torch_export import export_programs
 from ppasr_tpu_torch.infer_utils.vad_predictor import VADModel
 from ppasr_tpu_torch.models.factory import build_model
 from ppasr_tpu_torch.models.streaming_eval import streaming_greedy_batch
+from ppasr_tpu_torch.ops import ctc, ctc_cuda
 from ppasr_tpu_torch.ops import fbank as F
 from ppasr_tpu_torch.ops import fbank_cuda
 from ppasr_tpu_torch.ops.ctc import ctc_loss_from_logits
@@ -265,6 +284,7 @@ import make_torch_recipe_fixture as rf  # noqa: E402  (no JAX at import)
 import make_torch_smoke_fixture as fx  # noqa: E402  (no JAX at import)
 import make_torch_train_fixture as tf  # noqa: E402  (no JAX at import)
 import make_torch_zoo_fixture as zf  # noqa: E402  (no JAX at import)
+import torch_ctc_cases as cc  # noqa: E402  (no JAX)
 import torch_ddp_worker as dw  # noqa: E402  (no JAX)
 import torch_native_util as nu  # noqa: E402  (no JAX)
 import torch_tp_worker as tw  # noqa: E402  (no JAX)
@@ -547,6 +567,151 @@ def time_kernel(shapes):
         'shape': 'one streaming window: 67 frames at stride 160',
         'shapes': rows,
     }
+
+
+def check_ctc(dev):
+    """Phase 3, C1: the loss and its gradient at the training cell's shape
+    through the kernels against the plain versions on the card. Returns
+    the case for the timing phase."""
+    logits, labels, ll, il = cc.cell_batch(398, seed=18)
+    logits = torch.from_numpy(logits).to(dev)
+    il, labels, ll = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                      for a in (il, labels, ll))
+    before = ctc_cuda.launches
+    k_loss, k_grad = cc.loss_and_grad(logits, il, labels, ll)
+    torch.cuda.synchronize()
+    if ctc_cuda.launches != before + 2:
+        raise AssertionError(f"C1: {ctc_cuda.launches - before} launches "
+                             f"for a forward and backward, not 2")
+    p_loss, p_grad = cc.loss_and_grad(logits, il, labels, ll, plain=True)
+    loss_err = abs(k_loss.item() - p_loss.item()) / abs(p_loss.item())
+    grad_err = (k_grad - p_grad).abs().max().item()
+    print(f"  C1 at {list(logits.shape)}, U ≤ {labels.shape[1]}: loss "
+          f"{k_loss.item():.6f}, "
+          f"against the plain version rel {loss_err:.3g}, gradient max "
+          f"|Δ| {grad_err:.3g}", flush=True)
+    if not (torch.isfinite(k_grad).all() and loss_err <= 1e-6
+            and grad_err <= 1e-6):
+        raise AssertionError(f"C1 disagrees with its plain version: loss "
+                             f"rel {loss_err}, gradient {grad_err}")
+    ext, valid, skip = ctc._extended_labels(labels, ll, 0)
+    emit = ctc.EmissionsFromLogits.apply(logits, ext).detach()
+    return dict(emit=emit, il=il, ll=ll, valid=valid, skip=skip,
+                log_probs=torch.log_softmax(logits, -1).transpose(0, 1)
+                .contiguous(), labels=labels.clamp(min=0).long(),
+                max_abs_err=grad_err, loss_rel_err=loss_err)
+
+
+@contextlib.contextmanager
+def c1_launches(name, tally):
+    """Phases 12-14: counts the models' CTC loss calls (``models/ctc.py``'s
+    module-level ``ctc_loss_from_logits``) and C1's launches over a block.
+    Each call must launch ``ctc_lattice_alpha`` once and, where its logits
+    take a gradient, ``ctc_lattice_beta`` once more: a loss that left the
+    kernels, or an alpha kept for a backward that never ran, fails here.
+    Appends the block's launches to ``tally``."""
+    loss = models_ctc.ctc_loss_from_logits
+    calls = {'all': 0, 'grad': 0}
+
+    def counted(logits, *args, **kw):
+        calls['all'] += 1
+        calls['grad'] += int(torch.is_grad_enabled() and logits.requires_grad)
+        return loss(logits, *args, **kw)
+    before = ctc_cuda.launches
+    models_ctc.ctc_loss_from_logits = counted
+    try:
+        yield
+    finally:
+        models_ctc.ctc_loss_from_logits = loss
+    got = ctc_cuda.launches - before
+    want = calls['all'] + calls['grad']
+    print(f"  C1 launches on the {name} paths: {got} for {calls['all']} loss "
+          f"calls, {calls['grad']} of them with a gradient", flush=True)
+    if calls['all'] == 0 or got != want:
+        raise AssertionError(f"{name}: C1 launched {got} times for "
+                             f"{calls['all']} loss calls ({calls['grad']} "
+                             f"with a gradient), not {want}")
+    tally.append(got)
+
+
+def ctc_bound_ms(emit, valid):
+    """Least time of the pair on this card class by bytes: the emissions
+    in, their gradient out, the masks, lengths, NLL and its gradient; the
+    operations (~40 a lattice cell) are far under the fp32 peak. What
+    bounds the kernels is the chain of T dependent frames, not this."""
+    rows = emit.shape[0]
+    nbytes = 2 * emit.numel() * 4 + 2 * valid.numel() + rows * 4 * 4
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def time_ctc(case, launches, iters=20, reps=3):
+    """Phase 18, C1: three rounds timing in turn the pair through
+    ``CTCLattice`` (forward and backward), the plain version (the alpha
+    loop and autograd's backward through it), ``F.ctc_loss`` forward and
+    backward on the same log-probs, and the pair again; the table entry,
+    medians of the rounds, with ``launches`` those of phases 12-14."""
+    emit, il, ll, valid, skip = (case[k] for k in ('emit', 'il', 'll',
+                                                   'valid', 'skip'))
+    rows = emit.shape[0]
+    g = torch.full((rows,), 1.0 / rows, device=emit.device)
+
+    def pair():
+        e = emit.detach().requires_grad_()
+        ctc.CTCLattice.apply(e, il, ll, valid, skip, True).backward(g)
+
+    def plain():
+        e = emit.detach().requires_grad_()
+        ctc.lattice_alpha(e, il, ll, valid, skip).backward(g)
+
+    def library():
+        x = case['log_probs'].detach().requires_grad_()
+        (torch.nn.functional.ctc_loss(x, case['labels'], il, ll,
+                                      reduction='sum') / rows).backward()
+    turns = []
+    for rep in range(reps):
+        row = {}
+        for label, fn, per_call, n in (
+                ('kernel', pair, 2, iters), ('plain', plain, 0, 3),
+                ('library', library, 0, iters),
+                ('kernel_again', pair, 2, iters)):
+            row[f'{label}_call_ms'] = call_ms(fn, n, warmup=1)
+            if per_call:
+                (row[f'{label}_device_ms'],
+                 row[f'{label}_launches_profiled']) = device_ms(
+                     fn, iters, per_call, 'ctc_lattice')
+        print(f"  C1 round {rep + 1}: " + ", ".join(
+            f"{k} {v:.6f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items()), flush=True)
+        turns.append(row)
+
+    def med(*keys):
+        return statistics.median(t[k] for t in turns for k in keys)
+    bound = ctc_bound_ms(emit, valid)
+    out = {
+        'name': 'ctc_lattice', 'route': 'cuda',
+        'source': 'ppasr_tpu_torch/csrc/ctc.cu',
+        'replaces': 'none: the lax.scan of ppasr_tpu/ops/ctc.py:139-174',
+        'tpu_function': None,
+        'launches': launches,
+        'max_abs_err': case['max_abs_err'],
+        'loss_rel_err': case['loss_rel_err'],
+        'ms': med('kernel_call_ms', 'kernel_again_call_ms'),
+        'call_ms': med('kernel_call_ms', 'kernel_again_call_ms'),
+        'device_ms': med('kernel_device_ms', 'kernel_again_device_ms'),
+        'plain_ms': med('plain_call_ms'),
+        'library_ms': med('library_call_ms'),
+        'bound_ms': bound, 'bound_by': 'bytes; the T-step chain limits',
+        'shape': f'forward + backward at [{rows}, {emit.shape[1]}, '
+                 f'{emit.shape[2]}] emissions (V '
+                 f'{case["log_probs"].shape[2]})',
+        'turns': turns,
+    }
+    print(f"  C1 pair: device {out['device_ms']:.6f} ms, per call "
+          f"{out['call_ms']:.6f} ms; plain {out['plain_ms']:.3f} ms; "
+          f"F.ctc_loss {out['library_ms']:.3f} ms; bound {bound:.6f} ms "
+          f"(bytes); {out['launches']} launches on the training paths; medians "
+          f"of {reps} rounds", flush=True)
+    return out
 
 
 def tf32_flags():
@@ -2440,16 +2605,17 @@ def main():
     phase('card', t0)
 
     t0 = time.time()
-    so = fbank_cuda.build(force=True)
-    with open(so.with_suffix('.log'), encoding='utf-8') as f:
-        report = [line.strip() for line in f
-                  if 'registers' in line or 'spill' in line]
-    for line in report:
-        print(f"  ptxas: {line}", flush=True)
+    for so in (fbank_cuda.build(force=True), ctc_cuda.build(force=True)):
+        with open(so.with_suffix('.log'), encoding='utf-8') as f:
+            report = [line.strip() for line in f
+                      if 'registers' in line or 'spill' in line]
+        for line in report:
+            print(f"  ptxas ({so.name}): {line}", flush=True)
     phase('build', t0)
 
     t0 = time.time()
     shapes = check_kernel(dev)
+    lattice = check_ctc(dev)
     phase('kernel', t0)
 
     t0 = time.time()
@@ -2488,16 +2654,20 @@ def main():
     phase('long', t0)
 
     t0 = time.time()
-    launches += train_path(card, dev)
+    c1 = []
+    with c1_launches('training', c1):
+        launches += train_path(card, dev)
     train_timing(card, dev)
     phase('train', t0)
 
     t0 = time.time()
-    launches += zoo_path(card, dev)
+    with c1_launches('zoo', c1):
+        launches += zoo_path(card, dev)
     phase('zoo', t0)
 
     t0 = time.time()
-    launches += recipe_path(card, dev)
+    with c1_launches('recipe', c1):
+        launches += recipe_path(card, dev)
     phase('recipe', t0)
 
     t0 = time.time()
@@ -2516,10 +2686,11 @@ def main():
     entry = time_kernel(shapes)
     entry['launches'] = launches
     entry['max_abs_err'] = max(entry['max_abs_err'], batch_err)
+    ctc_entry = time_ctc(lattice, sum(c1))
     phase('timing', t0)
 
     print(f"[total] {time.time() - t_all:.2f} s", flush=True)
-    print(json.dumps({'kernels': [entry]}), flush=True)
+    print(json.dumps({'kernels': [entry, ctc_entry]}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -6,20 +6,25 @@ ppasr_tpu/ops/ctc.py:18-174).
   log-softmax: ``EmissionsFromLogits`` (the custom VJP of :105-136) gathers
   the emissions of the extended labels beside a fused logsumexp, and its
   backward recomputes the softmax and scatter-adds the incoming gradient.
-- The alpha recursion (:139-174) runs over time with the batch and the
-  extended-label axis [B, 2U+1] vectorized; each row is frozen after its
-  input length, and U = 0 reads alpha[0] alone. The gradient is autograd's
-  through the loop.
+- The lattice recursion (the ``lax.scan`` of :139-174): on a CUDA tensor
+  ``CTCLattice``, one launch of kernel C1's ``ctc_lattice_alpha`` forward
+  and one of ``ctc_lattice_beta`` backward (``ops/ctc_cuda.py``,
+  ``csrc/ctc.cu``); on a CPU tensor the plain ``lattice_alpha``, the alpha
+  loop over frames with the batch and extended-label axis [B, 2U+1]
+  vectorized, and autograd's gradient through it, whose arithmetic the
+  kernels repeat. Each row is frozen after its input length, and U = 0
+  reads alpha[0] alone.
 
 Blank is 0, label padding is −1, ``LOG_EPSILON`` is −1e30 (not −inf, so no
 NaN reaches the gradient). The loss is the sum over the batch divided by B
 (``average_batch``), as the JAX package's. Both losses record the span
 ``loss.ctc`` (the forward only) while a profiler records (``utils/trace``).
-This is PyTorch code, as the JAX loss is XLA code;
-``F.ctc_loss(reduction='sum') / B`` is the tests' oracle.
+``F.ctc_loss(reduction='sum') / B`` is the tests' oracle and the
+benchmark reference's loss; the port never calls it.
 """
 import torch
 
+from ppasr_tpu_torch.ops import ctc_cuda
 from ppasr_tpu_torch.utils.trace import span
 
 LOG_EPSILON = -1e30
@@ -64,9 +69,12 @@ class EmissionsFromLogits(torch.autograd.Function):
         return g_logits.to(logits.dtype), None
 
 
-def _loss_from_emissions(emit_all, input_lengths, label_lengths, valid_s,
-                         can_skip, average_batch):
-    """Alpha recursion over the gathered emissions [B, T, S] (float32)."""
+def lattice_alpha(emit_all, input_lengths, label_lengths, valid_s,
+                  can_skip):
+    """Plain version of kernel C1: the alpha recursion over the gathered
+    emissions [B, T, S], each row frozen after its input length and U = 0
+    reading alpha[0] alone → nll [B]. Autograd through it gives the
+    gradient that ``ctc_lattice_beta`` computes."""
     bsz, max_t, s_len = emit_all.shape
     eps = torch.tensor(LOG_EPSILON, dtype=emit_all.dtype,
                        device=emit_all.device)
@@ -90,9 +98,44 @@ def _loss_from_emissions(emit_all, input_lengths, label_lengths, valid_s,
     last = torch.gather(alpha, 1, (2 * u)[:, None])[:, 0]
     second = torch.gather(alpha, 1, torch.clamp(2 * u - 1, min=0)[:, None])[:, 0]
     second = torch.where(u > 0, second, eps)
-    nll = -torch.logaddexp(last, second)
+    return -torch.logaddexp(last, second)
+
+
+class CTCLattice(torch.autograd.Function):
+    """nll [B] of the CTC lattice over the gathered float32 emissions
+    [B, T, S] on the card: one ``ctc_lattice_alpha`` launch, and one
+    ``ctc_lattice_beta`` in the backward. Alpha is kept only where ``keep``
+    says a gradient is needed (grad mode on and the emissions requiring
+    it: the forward cannot see grad mode)."""
+
+    @staticmethod
+    def forward(ctx, emit_all, input_lengths, label_lengths, valid_s,
+                can_skip, keep):
+        nll, alpha = ctc_cuda.lattice_alpha(emit_all, input_lengths,
+                                            label_lengths, valid_s, can_skip,
+                                            keep)
+        if keep:
+            ctx.save_for_backward(alpha, input_lengths, label_lengths,
+                                  valid_s, can_skip)
+        return nll
+
+    @staticmethod
+    def backward(ctx, grad_nll):
+        grad = ctc_cuda.lattice_beta(*ctx.saved_tensors, grad_nll)
+        return grad, None, None, None, None, None
+
+
+def _loss_from_emissions(emit_all, input_lengths, label_lengths, valid_s,
+                         can_skip, average_batch):
+    """The lattice's NLL per row, or their sum over the batch / B."""
+    args = (emit_all, input_lengths, label_lengths, valid_s, can_skip)
+    if emit_all.is_cuda:
+        keep = torch.is_grad_enabled() and emit_all.requires_grad
+        nll = CTCLattice.apply(*args, keep)
+    else:
+        nll = lattice_alpha(*args)
     if average_batch:
-        return nll.sum() / bsz
+        return nll.sum() / emit_all.shape[0]
     return nll
 
 
@@ -102,12 +145,13 @@ def ctc_loss(log_probs: torch.Tensor, input_lengths: torch.Tensor,
     """Negative log-likelihood of the CTC lattice. log_probs [B, T, V],
     input_lengths [B], labels [B, U] padded with −1, label_lengths [B] →
     sum over the batch / B (or the [B] vector when ``average_batch`` is
-    False)."""
+    False), computed in float32."""
     with span('loss.ctc'):
         ext, valid_s, can_skip = _extended_labels(labels, label_lengths,
                                                   blank)
         emit_all = torch.gather(
-            log_probs, 2, ext[:, None, :].expand(-1, log_probs.shape[1], -1))
+            log_probs, 2,
+            ext[:, None, :].expand(-1, log_probs.shape[1], -1)).float()
         return _loss_from_emissions(emit_all, input_lengths, label_lengths,
                                     valid_s, can_skip, average_batch)
 

@@ -7,8 +7,7 @@ one warp per frame and eight frames a block, in float32 on the CUDA cores;
 it projects the power onto the mel filters over each filter's own band of
 bins, from the compact tables that ``_constants`` builds (``mel_bands``).
 The CUDA source is compiled at first use with plain ``nvcc`` for ``sm_90a``
-into a shared library with a C interface under ``build/torch_kernels/``
-(listed in ``.gitignore``), named by a hash of the source and flags, and
+into a shared library with a C interface (``ops/cuda_build.py``) and
 loaded with ``ctypes``.
 
 The wrappers take a CPU tensor to the plain version (``ops/fbank.py``) and a
@@ -16,15 +15,12 @@ CUDA tensor to the kernel; on a CUDA tensor they launch the kernel or raise.
 ``launches`` counts kernel launches and nothing else.
 """
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ppasr_tpu_torch.ops import cuda_build
 from ppasr_tpu_torch.ops.fbank import (batch_frame_lens, fbank_batch_torch,
                                        fbank_frames_torch, frame_torch,
                                        get_mel_banks, povey_window)
@@ -37,51 +33,14 @@ MAX_MELS = 256       # the kernel's band tables hold at most 256 filters
 MAX_WEIGHTS = 512    # packed mel weights the kernel holds in shared memory
 
 SOURCE = Path(__file__).resolve().parent.parent / 'csrc' / 'fbank.cu'
-BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 launches = 0
 _lib = None
 _consts = {}
 
 
-def find_nvcc() -> str:
-    for root in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
-        if root and os.path.isfile(os.path.join(root, 'bin', 'nvcc')):
-            return os.path.join(root, 'bin', 'nvcc')
-    nvcc = shutil.which('nvcc')
-    if nvcc is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the fbank kernel "
-                           "is built from ppasr_tpu_torch/csrc/fbank.cu")
-    return nvcc
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f'libfbank_{digest}.so'
-
-
 def build(force: bool = False) -> Path:
-    """Compile ``csrc/fbank.cu`` unless the library for this source exists.
-    nvcc's output, with ``-Xptxas -v``'s register and spill report, goes to
-    the ``.log`` beside the library. The library is written under a
-    temporary name and renamed, so no lock file is needed."""
-    so = library_path()
-    if so.exists() and not force:
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix('.log').write_text(
-        ' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, so)
-    return so
+    return cuda_build.build(SOURCE, 'fbank', force)
 
 
 def _library():

@@ -2,12 +2,19 @@
 package's (ppasr_tpu/ops/ctc.py) and against ``F.ctc_loss(reduction='sum')
 / B``, value and gradient with respect to the logits, on the CPU.
 
-Cases: mixed lengths, U = 0, a repeated label (the skip transition is
-closed), input length exactly 2U + 1 where the labels repeat, and bf16
-logits. Tolerances: float32 values within 1e-5 relative and gradients
-within 1e-5 absolute (the same log-semiring sums in another order); bf16
-logits against the float32 loss of the same rounded logits, exact to the
-same 1e-5, since both compute in float32 from the bf16 values."""
+Cases (tests/torch_ctc_cases.py): mixed lengths, U = 0, a repeated label
+(the skip transition is closed), input length exactly 2U + 1 where the
+labels repeat, and bf16 logits. Tolerances: float32 values within 1e-5
+relative and gradients within 1e-5 absolute (the same log-semiring sums in
+another order); bf16 logits against the float32 loss of the same rounded
+logits, exact to the same 1e-5, since both compute in float32 from the
+bf16 values.
+
+On the CPU the loss runs the plain ``lattice_alpha`` with autograd's
+gradient, whose arithmetic kernel C1 repeats (tests/test_torch_ctc_cuda.py
+holds the kernels to it on the card); rows whose labels do not fit their
+frames, where ``F.ctc_loss`` reads inf, read 1e30 with a finite
+gradient."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,33 +23,13 @@ import torch
 import torch.nn.functional as F
 
 from ppasr_tpu.ops import ctc as jax_ctc
-from ppasr_tpu_torch.ops import ctc
+import torch_ctc_cases as cc
+from ppasr_tpu_torch.ops import ctc, ctc_cuda
 from torch_train_util import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
-
-# every case is [3, 12, 7] logits with labels padded to 4, so that JAX
-# compiles each function once: labels (−1 padded), label lengths, input
-# lengths
-P = -1
-CASES = {
-    'mixed': ([[1, 2, 2, 3], [4, P, P, P], [5, 6, 5, 1]], [4, 1, 4],
-              [12, 9, 9]),
-    'empty-label': ([[3, 1, P, P], [P, P, P, P], [2, P, P, P]], [2, 0, 1],
-                    [10, 7, 1]),
-    'repeat-at-2U+1': ([[2, 2, 2, P], [1, 2, 3, P], [3, 3, P, P]],
-                       [3, 3, 2], [7, 7, 5]),
-    'tight-no-repeat': ([[1, 2, 3, P], [4, 5, P, P], [6, P, P, P]],
-                        [3, 2, 1], [3, 2, 1]),
-}
-T, V = 12, 7
-
-
-def _inputs(case, seed=0):
-    labels, ll, il = (np.asarray(a) for a in CASES[case])
-    rng = np.random.default_rng(seed)
-    logits = rng.standard_normal((len(ll), T, V)).astype(np.float32) * 2
-    return logits, labels.astype(np.int32), ll, il
+CASES = cc.CASES
+_inputs = cc.inputs
 
 
 @jax.jit
@@ -120,3 +107,42 @@ def test_bf16_logits():
     tl, tg = _port(xb.detach().float().numpy(), labels, ll, il)
     assert abs(lb.item() - tl) <= TOL * abs(tl)
     assert np.abs(xb.grad.float().numpy() - tg).max() <= 1e-2  # bf16 grad
+
+
+@pytest.mark.parametrize('case', list(CASES) + ['unfit'])
+def test_per_row_nll_and_finite_gradient(case):
+    """average_batch=False: each row's NLL is ``F.ctc_loss``'s (reduction
+    'none') where that is finite; a row whose labels do not fit its frames
+    reads at least 1e29 (LOG_EPSILON's paths) where the library reads inf,
+    and the gradient stays finite. The 'unfit' batch also holds a fitting
+    row and one of input length 0, which the lattice reads as one frame."""
+    logits, labels, ll, il = _inputs(case, seed=3)
+    x = torch.tensor(logits, requires_grad=True)
+    nll = ctc.ctc_loss_from_logits(x, torch.tensor(il), torch.tensor(labels),
+                                   torch.tensor(ll), average_batch=False)
+    nll.sum().backward()
+    ref = F.ctc_loss(torch.log_softmax(x.detach(), -1).transpose(0, 1),
+                     torch.tensor(np.where(labels < 0, 0, labels)),
+                     torch.tensor(il), torch.tensor(ll), reduction='none')
+    fit = torch.isfinite(ref)
+    unfit = ~fit & torch.tensor(il > 0)
+    assert torch.isfinite(x.grad).all()
+    torch.testing.assert_close(nll.detach()[fit], ref[fit], rtol=TOL, atol=0)
+    assert (nll.detach()[unfit] >= 1e29).all()
+    assert unfit.sum().item() == (2 if case == 'unfit' else 0)
+
+
+def test_cpu_launches_no_kernel_and_no_grad_gives_the_same_loss():
+    """On the CPU the plain versions run (C1's ``launches`` stays 0);
+    under ``no_grad`` the loss is the same to the bit."""
+    logits, labels, ll, il = _inputs('mixed')
+    args = (torch.tensor(il), torch.tensor(labels), torch.tensor(ll))
+    before = ctc_cuda.launches
+    x = torch.tensor(logits, requires_grad=True)
+    loss = ctc.ctc_loss_from_logits(x, *args)
+    loss.backward()
+    with torch.no_grad():
+        quiet = ctc.ctc_loss_from_logits(x, *args)
+    assert ctc_cuda.launches == before == 0
+    assert not quiet.requires_grad
+    assert quiet.item() == loss.item()
