@@ -17,7 +17,10 @@ ppasr_tpu/models/squeezeformer.py).
   the time axis halved (``[:, ::2]`` on masks and positions, the output
   clipped to the strided mask, the odd-length case); at ``recover_idx``
   the frames are repeated ×2, projected (``time_recover_layer``) and added
-  to the pushed stream, cut to its length.
+  to the pushed stream, cut to its length. While a profiler records
+  (``utils/trace``), ``forward`` and ``forward_chunk`` record
+  ``encoder.half_rate`` from each time reduction through its recovery's
+  residual add (or the last block, where none follows).
 - ``forward_chunk`` (:373-465) with ``SqueezeformerState``: per-layer
   static ring caches of ``C // factor(i)`` rows at each layer's time
   scale; the positions of layer i are the base window at stride
@@ -43,6 +46,7 @@ from ppasr_tpu_torch.models.embedding import chunk_positions, sinusoid_table
 from ppasr_tpu_torch.models.positionwise import PositionwiseFeedForward
 from ppasr_tpu_torch.models.subsampling import flatten_nhwc, subsampled_len4
 from ppasr_tpu_torch.ops.masks import add_optional_chunk_mask, make_non_pad_mask
+from ppasr_tpu_torch.utils.trace import span
 
 
 class SqueezeformerState(NamedTuple):
@@ -52,6 +56,14 @@ class SqueezeformerState(NamedTuple):
     att_k: Tuple[torch.Tensor, ...]   # layer i: [B, C // factor(i), H, dk]
     att_v: Tuple[torch.Tensor, ...]
     cnn_cache: Tuple[torch.Tensor, ...]  # layer i: [B, lorder, D]
+
+
+def half_rate_span():
+    """``encoder.half_rate``, entered here and left by the caller at the
+    recovery's residual add."""
+    s = span('encoder.half_rate')
+    s.__enter__()
+    return s
 
 
 def as_list(v) -> Optional[List[int]]:
@@ -247,18 +259,22 @@ class SqueezeformerEncoder(nn.Module):
         stack = []
         for i, layer in enumerate(self.layers):
             if i in reduce_idx:
-                stack.append((xs, chunk_masks, pos_emb, mask_pad))
+                stack.append((xs, chunk_masks, pos_emb, mask_pad,
+                              half_rate_span()))
                 xs = self.time_reduction_layer(xs, mask_pad)
                 chunk_masks = chunk_masks[:, ::2, ::2]
                 mask_pad = mask_pad[:, :, ::2]
                 pos_emb = pos_emb[:, ::2, :]
                 xs = xs[:, :mask_pad.shape[-1], :]
             if i in recover_idx and stack:
-                r_x, chunk_masks, pos_emb, mask_pad = stack.pop()
+                r_x, chunk_masks, pos_emb, mask_pad, half = stack.pop()
                 xs = self.time_recover_layer(
                     torch.repeat_interleave(xs, 2, dim=1))
                 xs = r_x + xs[:, :r_x.shape[1], :]
+                half.__exit__(None, None, None)
             xs, _, _ = layer(xs, chunk_masks, pos_emb, mask_pad=mask_pad)
+        for *_, half in reversed(stack):
+            half.__exit__(None, None, None)
         return self._finish(xs), masks
 
     def init_state(self, batch_size: int, cache_size: int,
@@ -294,13 +310,14 @@ class SqueezeformerEncoder(nn.Module):
         for i, layer in enumerate(self.layers):
             f = self.factor(i)
             if i in reduce_idx:
-                stack.append(cur)
+                stack.append((cur, half_rate_span()))
                 cur = self.time_reduction_layer(cur)
             if i in recover_idx and stack:
-                r_x = stack.pop()
+                r_x, half = stack.pop()
                 cur = self.time_recover_layer(
                     torch.repeat_interleave(cur, 2, dim=1))
                 cur = r_x + cur[:, :r_x.shape[1], :]
+                half.__exit__(None, None, None)
             c_i = state.att_k[i].shape[1]
             s_i = c_i + cur.shape[1]
             pos_i = pos_base[:, ::f, :][:, -s_i:, :]
@@ -314,6 +331,8 @@ class SqueezeformerEncoder(nn.Module):
             new_k.append(k_all[:, k_all.shape[1] - c_i:])
             new_v.append(v_all[:, v_all.shape[1] - c_i:])
             new_cnn.append(cnn_c if self.lorder else state.cnn_cache[i])
+        for _, half in reversed(stack):
+            half.__exit__(None, None, None)
         new_state = SqueezeformerState(
             offset=state.offset + t_out,
             cache_len=torch.clamp(state.cache_len + t_out, max=c),

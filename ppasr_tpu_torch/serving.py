@@ -26,7 +26,10 @@ over them (:47-52, :62, :76-79, :135-143); the partial results stay
 greedy. The engine runs in the predictor's compute dtype.
 
 ``ticks``, ``windows`` and ``tick_seconds`` count the batched chunk steps,
-the slot-windows they served and their host time. While a profiler
+the slot-windows they served and their host time; ``state_bytes`` is the
+size of every slot's streaming state over all its leaves (the Conformer's
+5 stacked tensors, the Squeezeformer's 2 + 3 per layer), set when the
+engine builds the state. While a profiler
 records (``utils/trace``), each ``feed`` records ``engine.feed`` around
 ``engine.lock`` (the wait for the lock), ``engine.featurize`` and one
 ``engine.tick`` per batched step, which holds ``engine.assemble``,
@@ -48,6 +51,13 @@ from ppasr_tpu_torch.models.efficient_conformer import EffConState
 from ppasr_tpu_torch.models.squeezeformer import SqueezeformerState
 from ppasr_tpu_torch.predict import ieee_float32
 from ppasr_tpu_torch.utils.trace import span
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a NamedTuple or tuple tree, in order."""
+    if isinstance(tree, tuple):
+        return [x for part in tree for x in tree_leaves(part)]
+    return [tree]
 
 
 def tree_map(fn, *trees):
@@ -75,6 +85,8 @@ class StreamingBatchEngine:
             self._batch_state = self.model.init_state(
                 max_streams, predictor.cache_size, self.device)
         self._axes = self.stream_axes(self._batch_state)
+        self.state_bytes = sum(x.numel() * x.element_size()
+                               for x in tree_leaves(self._batch_state))
         self._rescorer = predictor._rescorer
         self._ds2 = predictor.use_model == 'deepspeech2'
 

@@ -14,8 +14,11 @@ session) and need no switch of their own. Counters are not kept here: they
 stay plain attributes of the objects that do the work.
 
 Spans sit at call sites (the streaming engine, the predictor, the train
-step, the CTC loss), never inside a model's ``forward`` or
-``forward_chunk``, which ``torch.export`` traces.
+step, the CTC loss), and inside a model's ``forward`` or ``forward_chunk``
+only where a stage has no call of its own: the Squeezeformer's
+``encoder.half_rate``, from its time reduction through its recovery.
+``torch.export`` traces those models with no profiler recording, so the
+span is the null context there and leaves nothing in the program.
 """
 import contextlib
 
