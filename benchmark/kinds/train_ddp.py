@@ -21,9 +21,8 @@ children, and every rank starts its process group with a timeout of
 others and raise; a child whose rank 0 has gone exits. Set-up runs the
 ``check_updates`` checked updates on every rank and reads after each how
 far the ranks' parameters lie apart. In the window rank 0 tells the others
-over a gloo group, before each update, whether one more follows. Each rank
-runs on its own equal slice of the cores rank 0 was started with (rank 0
-gets its cores back once the others have left).
+over a gloo group, before each update, whether one more follows. The
+ranks are bound to no cores, as a launcher such as torchrun leaves them.
 
 The output check, on rank 0 once the others have left: ``loss_gap``,
 ``grad_gap`` and ``change_gap`` as in ``kinds/train.py``, of rank 0's state
@@ -72,16 +71,6 @@ def device_of(kind: str, rank: int):
         torch.cuda.set_device(rank)
         return torch.device('cuda', rank)
     return torch.device('cpu')
-
-
-def pin(cores: list, rank: int, world: int):
-    """Every thread of this process on rank ``rank``'s slice of ``cores``
-    (the cores rank 0 was started with), as a launcher binds each rank to
-    cores of its own; nothing where there are fewer cores than ranks."""
-    per = len(cores) // world
-    if per:
-        for tid in os.listdir('/proc/self/task'):
-            os.sched_setaffinity(int(tid), cores[rank * per:(rank + 1) * per])
 
 
 def start_group(store, rank, world, device):
@@ -190,7 +179,6 @@ def child_main(argv=None):
                 os._exit(1)
             time.sleep(0.5)
     threading.Thread(target=orphaned, daemon=True).start()
-    pin(job['cores'], args.rank, args.world)
     device = device_of(job['device'], args.rank)
     store = dist.TCPStore('127.0.0.1', args.port, args.world, False,
                           timeout=timedelta(seconds=TIMEOUT_S))
@@ -284,12 +272,10 @@ def run(ctx):
     store = dist.TCPStore('127.0.0.1', port, world, True,
                           timeout=timedelta(seconds=TIMEOUT_S),
                           wait_for_workers=False)
-    cores = sorted(os.sched_getaffinity(0))
     payload = json.dumps({'config': conf, 'traffic': mix, 'seed': seed,
-                          'device': dev.type, 'cores': cores})
+                          'device': dev.type})
     children = Children(world, port, payload)
     try:
-        pin(cores, 0, world)
         rendezvous(store, world, children)
         flags = start_group(store, 0, world, device_of(dev.type, 0))
         rep = Replica(conf, mix, seed, 0, world, dev)
@@ -335,7 +321,6 @@ def run(ctx):
         children.kill()
         if dist.is_initialized():
             dist.destroy_process_group()
-        pin(cores, 0, 1)
     e2e = {'train_audio_s_per_s': totals['audio_s'] / window.seconds}
 
     # ---------------------------------------------------------------- check

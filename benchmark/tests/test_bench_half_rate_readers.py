@@ -1,10 +1,8 @@
-"""The readers of ``stream.half_rate_share``,
-``stream.half_rate_launches_per_tick`` and ``ddp.allreduce_ms_per_update``
-on hand-made profiler events (``test_bench_program_spans``' helpers): each
-returns None without a trace, and None where the program has no
-``encoder.half_rate`` span or no NCCL kernel ran (a parent's run, another
-family, one card), and the share, count or time the events give
-otherwise."""
+"""The readers of ``stream.half_rate_share`` and
+``stream.half_rate_launches_per_tick`` on hand-made profiler events
+(``test_bench_program_spans``' helpers): each returns None without a trace,
+and None where the program has no ``encoder.half_rate`` span (a parent's
+run, another family), and the share or count the events give otherwise."""
 from types import SimpleNamespace
 
 import pytest
@@ -45,18 +43,3 @@ def test_half_rate_readers(name, want):
                                  tail={'ticks': 2}))
     assert value == pytest.approx(want)
 
-
-def test_allreduce_reader():
-    read = spec.metric_reader('ddp.allreduce_ms_per_update')
-    assert read(SimpleNamespace(trace=None, tail={'updates': 2})) is None
-    base = [Event('bench.trace', CPU, 0, 10_000_000),
-            Event('sm90_gemm', CUDA, 0, 4_000_000)]
-    assert read(SimpleNamespace(trace=traced(base),
-                                tail={'updates': 2})) is None
-    nccl = base + [
-        Event('ncclDevKernel_AllReduce_Sum_f32_RING_LL', CUDA,
-              4_000_000, 7_000_000),
-        Event('ncclDevKernel_AllReduce_Sum_f32_RING_LL', CUDA,
-              8_000_000, 9_000_000)]
-    assert read(SimpleNamespace(trace=traced(nccl), tail={'updates': 2})) \
-        == pytest.approx(2.0)

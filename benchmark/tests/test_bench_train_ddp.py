@@ -1,12 +1,16 @@
 """A rehearsal of ``kinds/train_ddp.py`` on the CPU: four gloo ranks (this
 process and three children) at a tiny size run the cell's whole path, set-up,
-window and check, each rank on its own slice of the cores, and come out
-correct with the replicas equal; a rank that fails at its start makes rank
-0 kill the others and raise well within the ranks' timeout, and leaves no
-child behind. Each case runs under an alarm of its own (``LIMIT_S``), so a
-hang fails the test instead of holding the run. About 20 s on 8 cores."""
+window and check, and come out correct with the replicas equal; a rank that
+fails at its start makes rank 0 kill the others and raise well within the
+ranks' timeout, and leaves no child behind. Each case runs under an alarm of
+its own (``LIMIT_S``), so a hang fails the test instead of holding the run.
+About 20 s on 8 cores.
+
+The cell ``conformer.train_ddp4`` is not in ``BENCHMARK.json`` (its rate
+spread too widely between runs on four cards to be admitted; PERF.md §7):
+``ENTRY`` is its workload entry, added here to a copy of the file."""
 import copy
-import os
+import json
 import signal
 import sys
 import time
@@ -18,11 +22,28 @@ import run as bench
 from harness import spec
 
 WORKLOAD = 'conformer.train_ddp4'
+ENTRY = {'name': WORKLOAD, 'config': 'conformer', 'traffic': 'train_ddp4',
+         'chips': 4,
+         'why': "the recipe's update on 4 cards: DDP over NCCL, 16 x accum 4 "
+                "unsorted utterances a rank (256 an update), one gradient "
+                "all-reduce an update, unequal ranks waiting at the sync"}
 LIMIT_S = 240
 
 
-def tiny_cell():
-    cell = spec.Cell(WORKLOAD)
+def ddp_cell(root) -> spec.Cell:
+    """The cell, read from a copy of ``BENCHMARK.json`` in ``root`` that
+    holds ``ENTRY`` and reports ``train_audio_s_per_s`` in it."""
+    bench = spec.load_json(spec.ROOT / 'BENCHMARK.json')
+    bench['workloads'].append(ENTRY)
+    for m in bench['end_to_end']:
+        if m['name'] == 'train_audio_s_per_s':
+            m['workloads'].append(WORKLOAD)
+    (root / 'BENCHMARK.json').write_text(json.dumps(bench))
+    return spec.Cell(WORKLOAD, root=root)
+
+
+def tiny_cell(root):
+    cell = ddp_cell(root)
     conf = copy.deepcopy(cell.config)
     conf['encoder_conf'].update(output_size=32, linear_units=64,
                                 num_blocks=2)
@@ -49,12 +70,10 @@ def alarm():
     signal.signal(signal.SIGALRM, old)
 
 
-def test_four_ranks_are_correct_and_equal():
-    cell = tiny_cell()
+def test_four_ranks_are_correct_and_equal(tmp_path):
+    cell = tiny_cell(tmp_path)
     assert cell.chips == 4
-    cores = os.sched_getaffinity(0)
     result = bench.run_cell(cell, 2 ** 31 + 77, 3.0, 0, dev='cpu')
-    assert os.sched_getaffinity(0) == cores     # rank 0's cores given back
     print({k: v['value'] for k, v in result['checks'].items()})
     assert result['frames_checked'] == 3
     assert result['checks']['replica_gap']['value'] == 0
@@ -62,7 +81,7 @@ def test_four_ranks_are_correct_and_equal():
     assert result['metrics']['train_audio_s_per_s']['value'] > 0
 
 
-def test_a_failed_rank_ends_the_run(monkeypatch):
+def test_a_failed_rank_ends_the_run(tmp_path, monkeypatch):
     kind = spec.kind_module('train_ddp')
     launch = kind.child_command
     procs = []
@@ -80,7 +99,7 @@ def test_a_failed_rank_ends_the_run(monkeypatch):
     monkeypatch.setattr(kind.Children, '__init__', kept)
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match='rank 2 exited with code 3'):
-        kind.run(bench.Run(tiny_cell(), 5, 3.0, 0, 'cpu'))
+        kind.run(bench.Run(tiny_cell(tmp_path), 5, 3.0, 0, 'cpu'))
     assert time.monotonic() - t0 < kind.TIMEOUT_S
     assert len(procs) == 3
     for p in procs:
