@@ -89,8 +89,11 @@ is not 0:
    the host audio augmentation; overwritten: paths, batch size 2, 2
    epochs, the probe) over the 8 utterances as WAVs: finite losses, a
    checkpoint that ``PPASRPredictor`` loads strictly and runs on the card;
-   memorization, a fresh full-width init, 40 updates on the batch: the
-   full-context loss must halve; then the timing of the real step (32 ×
+   memorization, a fresh full-width init, 40 updates on the batch (the
+   first eager, the second capturing the CUDA graphs that it and the rest
+   replay, under a ``torch.profiler`` session recording CUDA activity): the full-context loss must halve,
+   and the card must run ``ctc_lattice_alpha`` and ``ctc_lattice_beta``
+   once each an update, the replayed ones included; then the timing of the real step (32 ×
    accum_grad 2 utterances of 8 s joined from the fixture's PCM, bf16 and
    float32: 2 warm-up steps, 5 timed, wall per step, audio-s/s, peak
    memory, one ``torch.profiler`` step with its top 10 kernels), and the
@@ -217,7 +220,13 @@ is not 0:
    the chain of T dependent frames; its ``launches`` those of the
    training paths of phases 12-14 (not the check of phase 3 nor this
    timing), each phase checked to launch C1 twice for each of the models'
-   loss calls that takes a gradient and once for each that does not.
+   loss calls that takes a gradient and once for each that does not (a
+   CUDA-graph capture's calls among them: their launches are recorded
+   into the graph, not run). The micro-steps that train steps replay from
+   CUDA graphs (their ``replays`` counters) make no call and no launch
+   from Python and are reported beside the launches, not in them; the
+   card's own count of C1 in replayed micro-steps is phase 12's
+   memorization check.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the one before it the kernel table as JSON; the last line is
@@ -244,6 +253,7 @@ import torch
 import ppasr_tpu_torch.decoders.greedy as greedy_module
 import ppasr_tpu_torch.models.ctc as models_ctc
 import ppasr_tpu_torch.predict as predict_module
+import ppasr_tpu_torch.train_state as train_state
 import ppasr_tpu_torch.trainer as trainer_module
 from ppasr_tpu_torch import create_data as create_data_cli
 from ppasr_tpu_torch import eval as eval_cli
@@ -603,35 +613,57 @@ def check_ctc(dev):
 
 
 @contextlib.contextmanager
-def c1_launches(name, tally):
+def c1_launches(name, tally, replayed):
     """Phases 12-14: counts the models' CTC loss calls (``models/ctc.py``'s
-    module-level ``ctc_loss_from_logits``) and C1's launches over a block.
-    Each call must launch ``ctc_lattice_alpha`` once and, where its logits
-    take a gradient, ``ctc_lattice_beta`` once more: a loss that left the
-    kernels, or an alpha kept for a backward that never ran, fails here.
-    Appends the block's launches to ``tally``."""
+    module-level ``ctc_loss_from_logits``) and C1's launch calls over a
+    block. Each call must launch ``ctc_lattice_alpha`` once and, where its
+    logits take a gradient, ``ctc_lattice_beta`` once more: a loss that
+    left the kernels, or an alpha kept for a backward that never ran,
+    fails here. Calls made while a CUDA graph captures count alike: their
+    launches are recorded into the graph. A train step's micro-step that
+    replays its graphs makes no call and no launch from Python; the
+    block's replayed micro-steps, read from each ``TrainStep``'s
+    ``replays`` counter, are appended to ``replayed`` and printed beside
+    the launches, not counted in them. Appends the block's launch calls
+    to ``tally``."""
     loss = models_ctc.ctc_loss_from_logits
-    calls = {'all': 0, 'grad': 0}
+    step_call = train_state.TrainStep.__call__
+    calls = {'all': 0, 'grad': 0, 'captured': 0, 'replayed': 0}
 
     def counted(logits, *args, **kw):
         calls['all'] += 1
         calls['grad'] += int(torch.is_grad_enabled() and logits.requires_grad)
+        calls['captured'] += int(torch.cuda.is_available()
+                                 and torch.cuda.is_current_stream_capturing())
         return loss(logits, *args, **kw)
+
+    def stepping(step, *args, **kw):
+        before = step.replays
+        try:
+            return step_call(step, *args, **kw)
+        finally:
+            calls['replayed'] += step.replays - before
     before = ctc_cuda.launches
     models_ctc.ctc_loss_from_logits = counted
+    train_state.TrainStep.__call__ = stepping
     try:
         yield
     finally:
         models_ctc.ctc_loss_from_logits = loss
+        train_state.TrainStep.__call__ = step_call
     got = ctc_cuda.launches - before
     want = calls['all'] + calls['grad']
-    print(f"  C1 launches on the {name} paths: {got} for {calls['all']} loss "
-          f"calls, {calls['grad']} of them with a gradient", flush=True)
+    print(f"  C1 launch calls on the {name} paths: {got} for {calls['all']} "
+          f"loss calls, {calls['grad']} of them with a gradient and "
+          f"{calls['captured']} made in a CUDA-graph capture; "
+          f"{calls['replayed']} micro-steps replayed from CUDA graphs (no "
+          f"call from Python, not counted here)", flush=True)
     if calls['all'] == 0 or got != want:
         raise AssertionError(f"{name}: C1 launched {got} times for "
                              f"{calls['all']} loss calls ({calls['grad']} "
                              f"with a gradient), not {want}")
     tally.append(got)
+    replayed.append(calls['replayed'])
 
 
 def ctc_bound_ms(emit, valid):
@@ -644,12 +676,14 @@ def ctc_bound_ms(emit, valid):
     return nbytes / PEAK_BYTES * 1e3
 
 
-def time_ctc(case, launches, iters=20, reps=3):
+def time_ctc(case, launches, replayed, iters=20, reps=3):
     """Phase 18, C1: three rounds timing in turn the pair through
     ``CTCLattice`` (forward and backward), the plain version (the alpha
     loop and autograd's backward through it), ``F.ctc_loss`` forward and
     backward on the same log-probs, and the pair again; the table entry,
-    medians of the rounds, with ``launches`` those of phases 12-14."""
+    medians of the rounds, with ``launches`` the launch calls of phases
+    12-14 and ``replayed_micro_steps`` their micro-steps replayed from
+    CUDA graphs."""
     emit, il, ll, valid, skip = (case[k] for k in ('emit', 'il', 'll',
                                                    'valid', 'skip'))
     rows = emit.shape[0]
@@ -693,6 +727,7 @@ def time_ctc(case, launches, iters=20, reps=3):
         'replaces': 'none: the lax.scan of ppasr_tpu/ops/ctc.py:139-174',
         'tpu_function': None,
         'launches': launches,
+        'replayed_micro_steps': replayed,
         'max_abs_err': case['max_abs_err'],
         'loss_rel_err': case['loss_rel_err'],
         'ms': med('kernel_call_ms', 'kernel_again_call_ms'),
@@ -709,8 +744,9 @@ def time_ctc(case, launches, iters=20, reps=3):
     print(f"  C1 pair: device {out['device_ms']:.6f} ms, per call "
           f"{out['call_ms']:.6f} ms; plain {out['plain_ms']:.3f} ms; "
           f"F.ctc_loss {out['library_ms']:.3f} ms; bound {bound:.6f} ms "
-          f"(bytes); {out['launches']} launches on the training paths; medians "
-          f"of {reps} rounds", flush=True)
+          f"(bytes); {out['launches']} launch calls on the training paths, "
+          f"{replayed} micro-steps replayed from CUDA graphs besides; "
+          f"medians of {reps} rounds", flush=True)
     return out
 
 
@@ -1466,16 +1502,49 @@ def memorize(card, dev, updates=40):
             return model(feat, feat_lens, text, text_lens)['loss'].item()
     first = full_context_loss()
     step = make_train_step(1)
+
+    def train():
+        return [round(float(step(state, batch, i)['loss']), 3)
+                for i in range(updates)]
     t0 = time.time()
-    curve = [step(state, batch, i)['loss'] for i in range(updates)]
-    curve = [round(float(v), 3) for v in curve]
+    curve, seen = c1_kernels(train) if dev.type == 'cuda' else (train(),
+                                                                 None)
     wall = time.time() - t0
     last = full_context_loss()
     print(f"  memorization on {card}: full-context loss {first:.4f} → "
-          f"{last:.4f} after {updates} updates ({wall:.2f} s); train losses "
+          f"{last:.4f} after {updates} updates ({wall:.2f} s"
+          f"{', under the profiler' if seen else ''}); train losses "
           f"{curve}", flush=True)
     if not (np.isfinite(curve).all() and last < 0.5 * first):
         raise AssertionError(f"the loss did not halve: {first} → {last}")
+    if seen is not None:
+        print(f"  C1 kernels the card ran over memorization's {updates} "
+              f"updates ({step.eager} micro-steps eager, {step.replays} "
+              f"replayed from CUDA graphs): {seen}", flush=True)
+        if step.replays == 0 or seen != {'alpha': updates,
+                                         'beta': updates}:
+            raise AssertionError(f"C1 ran {seen} on the card over {updates} "
+                                 f"updates of one micro-step ({step.replays} "
+                                 f"replayed), not once each an update")
+
+
+def c1_kernels(fn):
+    """(``fn()``, the count of each C1 kernel, ``ctc_lattice_alpha`` and
+    ``ctc_lattice_beta``, that the card ran during it), from a
+    torch.profiler session recording CUDA activity only. A micro-step
+    replayed from a CUDA graph runs its kernels without a call from
+    Python, so only the card's own record counts them."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    seen = {'alpha': 0, 'beta': 0}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k in seen:
+            seen[k] += evt.count if f'ctc_lattice_{k}' in evt.key else 0
+    return out, seen
 
 
 def long_train_batch(n_rows, seconds=8.0):
@@ -2654,19 +2723,19 @@ def main():
     phase('long', t0)
 
     t0 = time.time()
-    c1 = []
-    with c1_launches('training', c1):
+    c1, c1_replayed = [], []
+    with c1_launches('training', c1, c1_replayed):
         launches += train_path(card, dev)
     train_timing(card, dev)
     phase('train', t0)
 
     t0 = time.time()
-    with c1_launches('zoo', c1):
+    with c1_launches('zoo', c1, c1_replayed):
         launches += zoo_path(card, dev)
     phase('zoo', t0)
 
     t0 = time.time()
-    with c1_launches('recipe', c1):
+    with c1_launches('recipe', c1, c1_replayed):
         launches += recipe_path(card, dev)
     phase('recipe', t0)
 
@@ -2686,7 +2755,7 @@ def main():
     entry = time_kernel(shapes)
     entry['launches'] = launches
     entry['max_abs_err'] = max(entry['max_abs_err'], batch_err)
-    ctc_entry = time_ctc(lattice, sum(c1))
+    ctc_entry = time_ctc(lattice, sum(c1), sum(c1_replayed))
     phase('timing', t0)
 
     print(f"[total] {time.time() - t_all:.2f} s", flush=True)

@@ -35,9 +35,10 @@ def reverse_pad_list(ys_pad: torch.Tensor, ys_lens: torch.Tensor,
     lens = ys_lens.to(torch.long)[:, None]
     rev_idx = torch.clamp(lens - 1 - pos, 0, max_u - 1)
     gathered = torch.gather(ys_pad, 1, rev_idx)
+    # a fill on the device: a CUDA graph captures it, not a host copy
     return torch.where(pos < lens, gathered,
-                       torch.tensor(pad_value, dtype=ys_pad.dtype,
-                                    device=ys_pad.device))
+                       torch.full((), pad_value, dtype=ys_pad.dtype,
+                                  device=ys_pad.device))
 
 
 def th_accuracy(pad_outputs: torch.Tensor, pad_targets: torch.Tensor,

@@ -7,7 +7,9 @@ static chunk, the pad mask alone, and the random dynamic chunk of training
 and is taken apart from the mask: ``draw_dynamic_chunk`` draws the two raw
 integers from a ``torch.Generator`` and ``dynamic_chunk_from_draw`` maps them
 to (chunk size, left chunks), so a test can hand the port the draw that
-JAX's key gives.
+JAX's key gives. ``DeviceChunk`` takes the generator's place in a forward
+that a CUDA graph captures: the chunk then reaches the mask as device data,
+drawn on the host and written in before each replay.
 """
 import torch
 
@@ -34,6 +36,43 @@ def dynamic_chunk_from_draw(draw: int, left_draw: int, max_len: int,
     return chunk_size, left_draw % max((max_len - 1) // chunk_size, 1)
 
 
+class DeviceChunk:
+    """The dynamic chunk as device data, for a captured training forward.
+
+    Given to ``add_optional_chunk_mask`` in place of the ``'chunk'``
+    generator, it records the call's (max_len, use_dynamic_left_chunk) and
+    builds the chunk mask from ``sizes``, a [2] int64 tensor (chunk size,
+    left chunks) on the device. ``draw(generator)`` then draws from a
+    micro-step's own ``'chunk'`` generator what the eager forward would
+    draw, maps it as ``dynamic_chunk_from_draw`` does and writes it in (two
+    fills on the card, no host copy): one graph serves every draw.
+    ``sizes`` is made before the capture: a block allocated inside one may
+    be an earlier kernel's scratch, which the replay writes over after the
+    fills."""
+
+    def __init__(self, device):
+        self.sizes = torch.ones(2, dtype=torch.long, device=device)
+        self.call = None
+
+    def mask(self, max_len: int, use_dynamic_left_chunk: bool
+             ) -> torch.Tensor:
+        if self.call is not None:
+            raise RuntimeError("the forward draws its dynamic chunk twice; "
+                               "a DeviceChunk holds one draw")
+        self.call = (max_len, use_dynamic_left_chunk)
+        return subsequent_chunk_mask(max_len, self.sizes[0], self.sizes[1],
+                                     device=self.sizes.device)
+
+    def draw(self, generator: torch.Generator):
+        if self.call is None:
+            return
+        max_len, use_left = self.call
+        chunk, left = dynamic_chunk_from_draw(
+            *draw_dynamic_chunk(max_len, generator), max_len, use_left)
+        self.sizes[0].fill_(chunk)
+        self.sizes[1].fill_(left)
+
+
 def make_pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """[B, T] bool, True on PADDED positions."""
     seq = torch.arange(max_len, device=lengths.device)[None, :]
@@ -52,20 +91,19 @@ def subsequent_mask(size: int, device=None) -> torch.Tensor:
     return i[:, None] >= i[None, :]
 
 
-def subsequent_chunk_mask(size: int, chunk_size: int,
-                          num_left_chunks: int = -1,
+def subsequent_chunk_mask(size: int, chunk_size, num_left_chunks=-1,
                           device=None) -> torch.Tensor:
     """[size, size] block-causal chunk mask: position i attends to
     [start, (i//chunk + 1) * chunk) with start = 0 when num_left_chunks < 0,
-    else max(0, (i//chunk - num_left_chunks) * chunk)."""
+    else max(0, (i//chunk - num_left_chunks) * chunk). The chunk size and
+    left chunks are ints, or 0-d int64 tensors on ``device``
+    (``DeviceChunk``)."""
     i = torch.arange(size, device=device)[:, None]
     j = torch.arange(size, device=device)[None, :]
     chunk_idx = i // chunk_size
     ending = (chunk_idx + 1) * chunk_size
-    if num_left_chunks < 0:
-        start = torch.zeros_like(chunk_idx)
-    else:
-        start = torch.clamp((chunk_idx - num_left_chunks) * chunk_size, min=0)
+    start = torch.clamp((chunk_idx - num_left_chunks) * chunk_size,
+                        min=0) * (num_left_chunks >= 0)
     return (j >= start) & (j < ending)
 
 
@@ -82,13 +120,17 @@ def add_optional_chunk_mask(max_len: int, masks: torch.Tensor,
     decoding_chunk_size < 0: full context; > 0: that chunk with
     num_decoding_left_chunks; == 0 with use_dynamic_chunk: the training
     draw, ``chunk_draw`` (draw, left_draw) if given, else drawn from
-    ``generator``."""
+    ``generator``, or read on the device where ``generator`` is a
+    ``DeviceChunk``."""
     if use_dynamic_chunk:
         if decoding_chunk_size < 0:
             chunk_size, num_left_chunks = max_len, -1
         elif decoding_chunk_size > 0:
             chunk_size = decoding_chunk_size
             num_left_chunks = num_decoding_left_chunks
+        elif isinstance(generator, DeviceChunk):
+            return masks & generator.mask(max_len,
+                                          use_dynamic_left_chunk)[None, :, :]
         else:
             if chunk_draw is None:
                 chunk_draw = draw_dynamic_chunk(max_len, generator)

@@ -25,6 +25,20 @@ the update ``train.optimizer`` (the division by ``accum_grad``, the
 replicated gradients' sync, the clip, the optimizer's step and
 ``zero_grad``).
 
+CUDA graphs: a step of one process on a card, with no packed RNN
+(``replays_graphs``), replays each micro-step's training forward and its
+backward from two CUDA graphs, one pair per padded shape
+(``MicroStepGraphs``), instead of launching the model's few thousand
+kernels one by one from Python and autograd. A shape's first micro-step
+runs ``eager_micro_step`` (the warm-up), the next captures the pair
+(span ``train.graph_capture``) and replays it, and every later one replays
+(span ``train.graph`` around the forward's replay, inside
+``train.forward``). The frontend, the division by ``accum_grad``, the
+clip, the optimizer and the schedule stay eager, as does every step under
+DDP or a mesh, on the CPU, or of DeepSpeech2. A replay draws the dropout
+bits and the dynamic chunk the eager micro-step would draw, and sums its
+gradients into ``.grad`` in the same order.
+
 Data parallelism across processes (the counterpart of ``data_mesh``,
 ``shard_batch`` and ``replicate``, :106-135): ``data_parallel`` wraps the
 model in ``DistributedDataParallel`` over the running process group, each
@@ -58,15 +72,18 @@ group and counts the replicated gradients once, after model index 0's
 replicated gradients are copied to its peers. Without a mesh the groups
 are the world.
 """
+import collections
 import contextlib
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch import nn
 
 from ppasr_tpu_torch.optimizer.factory import (build_optimizer,
                                                clip_by_global_norm)
 from ppasr_tpu_torch.models.base import BatchNorm
+from ppasr_tpu_torch.ops.masks import DeviceChunk
 from ppasr_tpu_torch.parallel.distributed import all_reduce_sum
 from ppasr_tpu_torch.parallel.tensor_parallel import (is_sharded,
                                                       sync_replicated_grads)
@@ -192,17 +209,210 @@ def data_parallel(state: TrainState, input_dim: int, mesh=None) -> list:
     return unused
 
 
-def make_train_step(accum_grad: int = 1, frontend=None,
-                    deterministic: bool = False):
-    """``train_step(state, batches, seed) → metrics``: the mean over the
-    micro-steps of loss, loss_att, loss_ctc and th_accuracy (0-d float32
-    tensors on the device, zero where the model has no attention branch),
-    and ``grad_norm``, the global norm of the averaged gradient before the
-    clip. ``deterministic`` runs the forwards in eval mode (no dropout, the
-    full context, no dither or feature augmentation), as the JAX model's
-    ``deterministic=True``: for parity checks."""
+def eager_micro_step(net, speech, speech_lens, text, text_lens, rngs,
+                     rescale=None) -> dict:
+    """One micro-step launch by launch: the training forward with both
+    losses (``train.forward``; ``rescale`` maps its loss terms, across
+    ranks ``_global_terms``), then autograd's backward (``train.backward``),
+    which sums each gradient into its parameter's ``.grad``. Returns the
+    loss terms."""
+    with span('train.forward'):
+        out = net(speech, speech_lens, text, text_lens, rngs=rngs)
+        if rescale is not None:
+            out = rescale(out)
+    with span('train.backward'):
+        out['loss'].backward()
+    return out
 
-    def train_step(state: TrainState, batches: dict, seed: int) -> dict:
+
+def replays_graphs(state: TrainState) -> bool:
+    """Whether ``state``'s micro-steps replay CUDA graphs: one process on a
+    card (no DDP ``replica``, no tensor-parallel ``mesh``) and no packed
+    RNN (``nn.RNNBase``: DeepSpeech2 packs its sequences by lengths read on
+    the host). Every other step runs ``eager_micro_step``."""
+    return (next(state.model.parameters()).is_cuda
+            and state.replica is None and state.mesh is None
+            and state.world == 1
+            and not any(isinstance(m, nn.RNNBase)
+                        for m in state.model.modules()))
+
+
+class MicroStepGraphs:
+    """A model's micro-steps as CUDA graphs: per padded shape of the inputs
+    (speech, lengths, text, text lengths; with the device and train or eval
+    mode) a forward graph and a backward graph, all in one memory pool.
+
+    A shape's first micro-step runs eagerly (its warm-up: kernels built,
+    plans chosen, workspaces made); the next one of that shape captures the
+    pair, and it and every later one replays it. An update that captures
+    costs a little more than one run eagerly, and every later update of a
+    held shape far less (PERF.md), so capturing at once loses only on a
+    shape that does not come back while held.
+
+    ``HELD`` = 64 pairs are kept, the least recently used evicted. The
+    trainer's loader pads each update to 64-frame and 16-label buckets,
+    which gives a corpus a few tens of shapes, with batches shuffled
+    between epochs: 64 holds nearly all of them, where a handful would
+    capture anew on most updates. A pair holds its graphs (tens of MB of
+    host memory, a little of the card's), its static inputs and the few
+    scalars it leaves: the activations' blocks go back to the pool after
+    each capture for the next one to reuse, so the pool grows with the
+    largest shape, not with the count, and the gradients land in one set
+    of static buffers that all pairs share.
+
+    Capturing the forward records the dynamic-chunk call through a
+    ``DeviceChunk`` and the dropouts' draws from one generator registered
+    with every forward graph. Before each replay the micro-step's own
+    ``'chunk'`` generator draws the chunk into the ``DeviceChunk`` and the
+    registered generator takes the seed of its ``'dropout'`` generator, so
+    a replay draws what the eager micro-step draws. The backward graph runs
+    ``autograd.grad`` into the static buffers; each is then added to its
+    parameter's ``.grad`` (set where it is None), in the eager step's order
+    of summation. Pairs are replayed forward then backward, one pair at a
+    time, and their outputs read before the next replay, which is what lets
+    them share the pool."""
+    HELD = 64
+
+    def __init__(self, model, params):
+        self.model, self.params = model, params
+        self.signature = _signature(model, params)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.dropout = torch.Generator(params[0].device)
+        self.grads = [torch.empty_like(p) for p in params]
+        self.pairs = collections.OrderedDict()
+        self.warm = None
+
+    def serves(self, model, params) -> bool:
+        return model is self.model and \
+            _signature(model, params) == self.signature
+
+    def run(self, step, inputs, rngs) -> dict:
+        key = tuple((tuple(t.shape), t.dtype, t.device) for t in inputs) \
+            + (self.model.training,)
+        pair = self.pairs.get(key)
+        if pair is None:
+            if self.warm != key:
+                self.warm = key
+                step.eager += 1
+                return eager_micro_step(self.model, *inputs, rngs)
+            with span('train.graph_capture'):
+                pair = _GraphPair(self, inputs)
+            step.captures += 1
+            self.pairs[key] = pair
+            if len(self.pairs) > self.HELD:
+                # the capture synchronized the card: nothing replays it
+                self.pairs.popitem(last=False)
+        else:
+            self.pairs.move_to_end(key)
+        step.replays += 1
+        return pair.replay(inputs, rngs)
+
+    def accumulate(self, used):
+        """Adds the static gradients of the parameters ``used`` to their
+        ``.grad``, or sets it where it is None, as autograd does."""
+        held, new = [], []
+        for j in used:
+            p, g = self.params[j], self.grads[j]
+            if p.grad is None:
+                p.grad = g.clone()
+            else:
+                held.append(p.grad)
+                new.append(g)
+        if held:
+            torch._foreach_add_(held, new)
+
+
+class _GraphPair:
+    """The forward and backward graphs of one shape, with their static
+    inputs, the ``DeviceChunk`` and the loss terms the forward leaves."""
+
+    def __init__(self, graphs: MicroStepGraphs, inputs):
+        self.graphs = graphs
+        self.inputs = [t.clone() for t in inputs]
+        self.chunk = DeviceChunk(graphs.params[0].device)
+        self.forward = torch.cuda.CUDAGraph()
+        self.backward = torch.cuda.CUDAGraph()
+        self.forward.register_generator_state(graphs.dropout)
+        with torch.cuda.graph(self.forward, pool=graphs.pool):
+            out = graphs.model(*self.inputs, rngs={'dropout': graphs.dropout,
+                                                   'chunk': self.chunk})
+        with torch.cuda.graph(self.backward, pool=graphs.pool):
+            grads = torch.autograd.grad(out['loss'], graphs.params,
+                                        allow_unused=True)
+            self.used = [j for j, g in enumerate(grads) if g is not None]
+            torch._foreach_copy_([graphs.grads[j] for j in self.used],
+                                 [grads[j] for j in self.used])
+        self.out = {k: None if v is None else v.detach()
+                    for k, v in out.items()}
+
+    def replay(self, inputs, rngs) -> dict:
+        with span('train.forward'):
+            for static, x in zip(self.inputs, inputs):
+                static.copy_(x)
+            self.chunk.draw(rngs['chunk'])
+            self.graphs.dropout.manual_seed(rngs['dropout'].initial_seed())
+            with span('train.graph'):
+                self.forward.replay()
+        with span('train.backward'):
+            self.backward.replay()
+            self.graphs.accumulate(self.used)
+        return {k: None if v is None else v.clone()
+                for k, v in self.out.items()}
+
+
+def _signature(model, params):
+    """Where the parameters and buffers a graph reads live."""
+    return tuple(t.data_ptr() for t in params) + \
+        tuple(b.data_ptr() for b in model.buffers())
+
+
+def optimizer_update(state: TrainState, accum_grad: int) -> torch.Tensor:
+    """The update from the gradients summed in ``.grad`` (``train.optimizer``):
+    the division by ``accum_grad``, the replicated gradients' sync under
+    tensor parallelism, the clip, the optimizer's step at the schedule's
+    rate and ``zero_grad``. Returns the norm before the clip."""
+    mesh = state.mesh
+    tp = mesh is not None and mesh.n_model > 1
+    with span('train.optimizer'):
+        params = state.params
+        for p in params:
+            if p.grad is None:       # optax decays it all the same
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        if tp:
+            sync_replicated_grads(params, mesh)
+        if accum_grad > 1:
+            torch._foreach_div_(grads, float(accum_grad))
+        grad_norm = clip_by_global_norm(
+            grads, state.grad_clip,
+            [is_sharded(p) for p in params] if tp else None,
+            mesh.model_group if tp else None)
+        lr = state.schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group['lr'] = lr
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=True)
+    return grad_norm
+
+
+class TrainStep:
+    """``make_train_step``'s step, ``step(state, batches, seed) →
+    metrics``. Its plain counters say how its micro-steps ran: ``eager``
+    (``eager_micro_step``), ``captures`` (a shape's graphs captured, then
+    replayed) and ``replays`` (every replayed micro-step, the capturing
+    ones included)."""
+
+    def __init__(self, accum_grad: int = 1, frontend=None,
+                 deterministic: bool = False):
+        self.accum_grad = accum_grad
+        self.frontend = frontend
+        self.deterministic = deterministic
+        self.graphs = None
+        self.eager = self.captures = self.replays = 0
+
+    def __call__(self, state: TrainState, batches: dict, seed: int) -> dict:
+        accum_grad, frontend = self.accum_grad, self.frontend
+        deterministic = self.deterministic
         model = state.model
         net = model if state.replica is None else state.replica
         multi = state.world > 1
@@ -211,6 +421,14 @@ def make_train_step(accum_grad: int = 1, frontend=None,
         tp = mesh is not None and mesh.n_model > 1
         device = next(model.parameters()).device
         model.train(not deterministic)
+        graphs = None
+        if replays_graphs(state):
+            params = state.params
+            if self.graphs is None or not self.graphs.serves(model, params):
+                if self.graphs is not None:
+                    torch.cuda.synchronize(device)   # its graphs may run
+                self.graphs = MicroStepGraphs(model, params)
+            graphs = self.graphs
         if multi:
             # each micro-step's decoder targets (the texts and their <eos>)
             # here and over every rank
@@ -231,40 +449,29 @@ def make_train_step(accum_grad: int = 1, frontend=None,
                             rngs['frontend'], deterministic=deterministic)
                 else:
                     speech, speech_lens = batch['speech'], batch['speech_lens']
-                sync = state.replica is None or i == accum_grad - 1
-                with contextlib.nullcontext() if sync else \
-                        state.replica.no_sync():
-                    with span('train.forward'):
-                        out = net(speech, speech_lens, batch['text'],
-                                  batch['text_lens'], rngs=rngs)
-                        if multi:
-                            out = _global_terms(model, out, share[i])
-                    with span('train.backward'):
-                        out['loss'].backward()
+                inputs = (speech, speech_lens, batch['text'],
+                          batch['text_lens'])
+                if graphs is not None:
+                    out = graphs.run(self, inputs, rngs)
+                else:
+                    sync = state.replica is None or i == accum_grad - 1
+                    with contextlib.nullcontext() if sync else \
+                            state.replica.no_sync():
+                        out = eager_micro_step(
+                            net, *inputs, rngs,
+                            (lambda o, s=share[i]: _global_terms(model, o, s))
+                            if multi else None)
+                    self.eager += 1
                 for k in METRICS:
                     v = out[k]
                     v = torch.zeros((), device=device) if v is None \
                         else v.detach().float()
                     sums[k] = v if i == 0 else sums[k] + v
-            with span('train.optimizer'):
-                params = state.params
-                for p in params:
-                    if p.grad is None:       # optax decays it all the same
-                        p.grad = torch.zeros_like(p)
-                grads = [p.grad for p in params]
-                if tp:
-                    sync_replicated_grads(params, mesh)
-                if accum_grad > 1:
-                    torch._foreach_div_(grads, float(accum_grad))
-                grad_norm = clip_by_global_norm(
-                    grads, state.grad_clip,
-                    [is_sharded(p) for p in params] if tp else None,
-                    mesh.model_group if tp else None)
-                lr = state.schedule(state.step)
-                for group in state.optimizer.param_groups:
-                    group['lr'] = lr
-                state.optimizer.step()
-                state.optimizer.zero_grad(set_to_none=True)
+                # an eager micro-step's autograd graph must not outlive it:
+                # its AccumulateGrad nodes keep this stream, which a capture
+                # in the next micro-step may not wait on
+                del out
+            grad_norm = optimizer_update(state, accum_grad)
         state.step += 1
         metrics = {k: v / accum_grad for k, v in sums.items()}
         if multi:
@@ -274,7 +481,18 @@ def make_train_step(accum_grad: int = 1, frontend=None,
         metrics['grad_norm'] = grad_norm
         return metrics
 
-    return train_step
+
+def make_train_step(accum_grad: int = 1, frontend=None,
+                    deterministic: bool = False) -> TrainStep:
+    """``train_step(state, batches, seed) → metrics``: the mean over the
+    micro-steps of loss, loss_att, loss_ctc and th_accuracy (0-d float32
+    tensors on the device, zero where the model has no attention branch),
+    and ``grad_norm``, the global norm of the averaged gradient before the
+    clip. ``deterministic`` runs the forwards in eval mode (no dropout, the
+    full context, no dither or feature augmentation), as the JAX model's
+    ``deterministic=True``: for parity checks. Where ``replays_graphs``
+    holds, the micro-steps replay ``MicroStepGraphs``."""
+    return TrainStep(accum_grad, frontend, deterministic)
 
 
 def _global_terms(model, out: dict, share: torch.Tensor) -> dict:
