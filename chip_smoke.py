@@ -787,8 +787,7 @@ def main_path(card):
         t_stream += time.time() - t0
     launches = fbank_cuda.launches
 
-    windows = sum(max(0, (len(p) - pred._win_samples)
-                      // pred._stride_samples + 1) for p in pcms)
+    windows = stream_windows(pred, pcms)
     audio_s = sum(len(p) for p in pcms) / 16000.0
     texts = [str(t) for t in data['texts']]
     errors = sum(edit_distance(h, r) for h, r in zip(stream, texts))
@@ -1029,8 +1028,7 @@ def beam_path(card, artifact, data, pcms):
                                  "card")
     stream_launches = fbank_cuda.launches
     stream_frames = dec.frames_decoded
-    windows = sum(max(0, (len(p) - pred._win_samples)
-                      // pred._stride_samples + 1) for p in pcms)
+    windows = stream_windows(pred, pcms)
 
     fbank_cuda.launches = 0
     dec.frames_decoded = 0
@@ -1091,8 +1089,9 @@ def profile_ms(fn):
 
 
 def stream_windows(pred, pcms):
-    return sum(max(0, (len(p) - pred._win_samples) // pred._stride_samples
-                   + 1) for p in pcms)
+    geo = pred.geometry
+    return sum(max(0, (len(p) - geo.win_samples) // geo.stride_samples + 1)
+               for p in pcms)
 
 
 def rescore_path(card, artifact, data, pcms):

@@ -403,6 +403,8 @@ def cast_for_compute(module: nn.Module, dtype: torch.dtype):
 class ASRModel(nn.Module):
     """What every model family shares: its compute dtype and its fresh
     initialization."""
+    output_factor = 1      # time reduction after the input layer
+    ring_cache = True      # a streaming step over ring caches of history
 
     def set_compute_dtype(self, dtype: torch.dtype, at_use: bool = False):
         """Run in ``dtype`` from now on (the JAX model's ``dtype``): the

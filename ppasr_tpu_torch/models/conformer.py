@@ -17,8 +17,9 @@ Entry points: ``get_encoder_out`` (full context, :114-120),
 ``encode_for_rescore`` (the encoder output beside the CTC posteriors,
 :138-145), ``attention_rescore_scores`` (the decoder's scores of beam
 hypotheses, :147-155), ``get_encoder_out_chunk`` (one streaming step,
-:157-162), ``get_encoder_out_chunk_rescore`` (the same step, also returning
-the encoder output, :164-170) and ``init_state`` (:172-190).
+:157-162), ``stream_step`` (that step, as the streaming loops call it,
+also returning the encoder output for rescoring: :164-170) and
+``init_state`` (:172-190).
 
 The attention decoder exists where the JAX model has its parameters: when
 ``ctc_weight < 1`` (the training loss calls it only then); its R2L half when
@@ -48,7 +49,6 @@ class ConformerModel(ASRModel):
     hooks the Squeezeformer and the EfficientConformer set; the rest, the
     loss and the entry points included, is the same for the three."""
     encoder_class = ConformerEncoder
-    output_factor = 1      # time reduction after the input layer
 
     @staticmethod
     def encoder_conf_for(conf: dict, streaming: bool) -> dict:
@@ -179,11 +179,16 @@ class ConformerModel(ASRModel):
         encoder_out, new_state = self.encoder.forward_chunk(xs, state)
         return self.ctc.softmax(encoder_out), new_state
 
-    def get_encoder_out_chunk_rescore(self, xs, state: StreamingState):
-        """The chunk step, also returning the encoder output for a final
-        rescoring pass → (encoder_out, probs, new_state)."""
-        encoder_out, new_state = self.encoder.forward_chunk(xs, state)
-        return encoder_out, self.ctc.softmax(encoder_out), new_state
+    def stream_step(self, xs, frames: int, state, keep_encoder=False):
+        """The step every streaming loop calls: windows [B, window, D] of
+        ``frames`` valid frames (unread here) → (probs [B, T_out, V], the
+        encoder output if ``keep_encoder`` else None, new_state). Looks up
+        ``get_encoder_out_chunk`` on the instance, where it may be wrapped."""
+        if keep_encoder:
+            encoder_out, new_state = self.encoder.forward_chunk(xs, state)
+            return self.ctc.softmax(encoder_out), encoder_out, new_state
+        probs, new_state = self.get_encoder_out_chunk(xs, state)
+        return probs, None, new_state
 
     def init_state(self, batch_size: int, cache_size: int,
                    device=None) -> StreamingState:

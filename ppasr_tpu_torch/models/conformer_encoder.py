@@ -55,6 +55,9 @@ class StreamingState(NamedTuple):
     att_v: torch.Tensor      # [L, B, C, H, dk]
     cnn_cache: torch.Tensor  # [L, B, lorder, D]
 
+    def stream_axes(self):
+        return StreamingState(0, 0, 1, 1, 1)
+
 
 class ConformerEncoderLayer(nn.Module):
     def __init__(self, size: int, attention_heads: int, linear_units: int,

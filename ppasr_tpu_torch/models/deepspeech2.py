@@ -14,7 +14,7 @@ CTC head (counterpart of ppasr_tpu/models/deepspeech2.py:26-183).
 - ``DeepSpeech2Model`` (:129-183): the CTC loss alone (``loss_att`` and
   ``th_accuracy`` None), ``get_encoder_out``, ``get_encoder_logits``,
   ``get_ctc_log_probs`` and the streaming ``get_encoder_out_chunk`` with
-  ``lens`` and the (h, c) state ``DS2State``.
+  ``lens`` and the (h, c) state ``DS2State``, which ``stream_step`` calls.
 
 Each row runs through its first ``min(out_len, T')`` frames
 (``pack_padded_sequence``), as flax's ``nn.RNN(seq_lengths=...)`` does:
@@ -51,6 +51,9 @@ class DS2State(NamedTuple):
     zero for the GRU)."""
     h: torch.Tensor
     c: torch.Tensor
+
+    def stream_axes(self):
+        return DS2State(1, 1)
 
 
 class Conv2dSubsampling4Pure(nn.Module):
@@ -188,6 +191,7 @@ class CRNNEncoder(nn.Module):
 class DeepSpeech2Model(ASRModel):
     subsampling_rate = 4
     right_context = 6
+    ring_cache = False
 
     def __init__(self, input_size: int, vocab_size: int,
                  streaming: bool = True, encoder_conf: Optional[dict] = None,
@@ -231,6 +235,13 @@ class DeepSpeech2Model(ASRModel):
         new_state)."""
         eouts, eouts_len, new_state = self.encoder(speech, speech_lens, state)
         return self.ctc.softmax(eouts), eouts_len, new_state
+
+    def stream_step(self, xs, frames: int, state, keep_encoder=False):
+        """``ConformerModel.stream_step`` for the RNNs: every row runs
+        ``frames`` frames; no attention decoder, so no encoder output."""
+        lens = torch.full((xs.shape[0],), frames, device=xs.device)
+        probs, _, new_state = self.get_encoder_out_chunk(xs, lens, state)
+        return probs, None, new_state
 
     def init_state(self, batch_size: int, cache_size: int = 0,
                    device=None) -> DS2State:

@@ -57,6 +57,9 @@ class EffConState(NamedTuple):
     att_v: Tuple[torch.Tensor, ...]
     cnn_cache: Tuple[torch.Tensor, ...]  # layer i: [B, lorder_i, D]
 
+    def stream_axes(self):
+        return type(self)(0, 0, *(tuple(0 for _ in f) for f in self[2:]))
+
 
 def as_list(v) -> list:
     if v is None:

@@ -57,6 +57,9 @@ class SqueezeformerState(NamedTuple):
     att_v: Tuple[torch.Tensor, ...]
     cnn_cache: Tuple[torch.Tensor, ...]  # layer i: [B, lorder, D]
 
+    def stream_axes(self):
+        return type(self)(0, 0, *(tuple(0 for _ in f) for f in self[2:]))
+
 
 def half_rate_span():
     """``encoder.half_rate``, entered here and left by the caller at the

@@ -1,72 +1,60 @@
 """Batched chunked-streaming encode for evaluation (counterpart of
 ppasr_tpu/models/streaming_eval.py).
 
-Drives ``get_encoder_out_chunk`` over decoding windows exactly as the
-streaming predictor does (window (chunk−1)·4 + 7 input frames, stride
-chunk·4), with B streams sharing one ``StreamingState`` on the model's
-device. ``streaming_greedy_batch`` takes the argmax and max of each
-window's posteriors on the device, so only [B, chunk] id and score planes
-go to the host. Both functions run under ``predict.ieee_float32()``.
+Drives each window through the model's ``stream_step`` exactly as the
+streaming predictor does (``models/streaming.ChunkGeometry``), with B
+streams sharing one ``StreamingState`` on the model's device.
+``streaming_greedy_batch`` takes the argmax and max of each window's
+posteriors on the device, so only [B, chunk] id and score planes go to the
+host. Both functions run under ``utils/precision.ieee_float32()``.
 
 The JAX functions take ``params`` and jitted step functions; the port's
 take the module, which holds its weights, and run eagerly. The attention
 families run here, their output lengths divided by the model's
-``output_factor``; DeepSpeech2, whose step is not this chunk API, raises as
-the JAX trainer does for it (ppasr_tpu/trainer.py:790-796).
+``output_factor``; DeepSpeech2, whose state is no ring cache, raises as
+the JAX trainer does for it (ppasr_tpu/trainer.py:790-796). The cache is
+the JAX function's ``chunk·left_chunks``.
 """
 import numpy as np
 import torch
 
 from ppasr_tpu_torch.decoders.greedy import ctc_argmax
-from ppasr_tpu_torch.models.deepspeech2 import DeepSpeech2Model
-from ppasr_tpu_torch.predict import ieee_float32
-
-SUBSAMPLING = 4
-CONTEXT = 7
-
-
-def _window_plan(inputs, chunk):
-    """Shared padding/window math → (x padded, n_win, window, stride)."""
-    window = (chunk - 1) * SUBSAMPLING + CONTEXT
-    stride = chunk * SUBSAMPLING
-    inputs = np.asarray(inputs)
-    bsz, t_max, feat_dim = inputs.shape
-    out_total = max(1, max(int(t_max) - CONTEXT, 0) // SUBSAMPLING + 1)
-    n_win = -(-out_total // chunk)
-    pad_t = (n_win - 1) * stride + window
-    # pad_t can fall up to 3 frames short of t_max, when out_total is a
-    # multiple of chunk: those frames end no subsampling step and feed no
-    # output frame, so they are dropped (the JAX function raises there)
-    x = np.zeros((bsz, pad_t, feat_dim), np.float32)
-    x[:, :min(t_max, pad_t)] = inputs[:, :pad_t]
-    return x, n_win, window, stride
+from ppasr_tpu_torch.models.streaming import ChunkGeometry
+from ppasr_tpu_torch.utils.precision import ieee_float32
 
 
 def _out_lens(model, in_lens, t_cap):
-    out_factor = model.output_factor
-    olens = np.maximum(np.asarray(in_lens) - CONTEXT, 0) // SUBSAMPLING + 1
-    olens = (olens + out_factor - 1) // out_factor
+    olens = ChunkGeometry.n_out(np.asarray(in_lens), model.output_factor)
     return np.minimum(olens, t_cap).astype(np.int32)
 
 
 def _run_windows(model, inputs, chunk, left_chunks, reduce):
     """[reduce(probs [B, chunk, V]) for each window], the windows run in
     order on the model's device with one shared streaming state."""
-    if isinstance(model, DeepSpeech2Model):
+    if not model.ring_cache:
         raise NotImplementedError(
             "streaming_eval drives the attention-family chunk API "
             "(get_encoder_out_chunk with a ring-cache state), as in the JAX "
             "package; use the predictor's predict_stream for deepspeech2 "
             "(ROADMAP, raises kept from the JAX package)")
     device = next(model.parameters()).device
-    x, n_win, window, stride = _window_plan(inputs, chunk)
+    geo = ChunkGeometry(chunk, left_chunks)
+    inputs = np.asarray(inputs)
+    bsz, t_max, feat_dim = inputs.shape
+    n_win = -(-int(geo.n_out(t_max)) // chunk)
+    pad_t = (n_win - 1) * geo.stride + geo.window
+    # pad_t can fall up to 3 frames short of t_max, when the output frames
+    # are a multiple of chunk: those frames end no subsampling step and
+    # feed no output frame, so they are dropped (the JAX function raises)
+    x = np.zeros((bsz, pad_t, feat_dim), np.float32)
+    x[:, :min(t_max, pad_t)] = inputs[:, :pad_t]
     out = []
     with torch.inference_mode(), ieee_float32():
         state = model.init_state(x.shape[0], chunk * left_chunks, device)
         for k in range(n_win):
             xs = torch.from_numpy(
-                x[:, k * stride:k * stride + window]).to(device)
-            probs_k, state = model.get_encoder_out_chunk(xs, state)
+                x[:, k * geo.stride:k * geo.stride + geo.window]).to(device)
+            probs_k, _, state = model.stream_step(xs, geo.window, state)
             out.append(reduce(probs_k[:, :chunk]))
     return out
 

@@ -22,21 +22,18 @@
   joined with ``，``.
 - ``predict_stream`` (:480-605): the host-feature path, and with
   ``use_device_frontend=True`` the device path, where each raw window of
-  (decoding_window−1)·160 + 400 samples goes through the fused fbank kernel
+  (window−1)·160 + 400 samples goes through the fused fbank kernel
   (``ops/fbank_cuda.fbank_window``, stride 160) on the model's device.
   With attention rescoring, the partial results are greedy and the final
   one (``is_end``) is a rescoring pass over the encoder outputs and
   posteriors the chunk steps kept on the device (:641-661).
 - ``_run_chunk`` and the running-RMS gain offset (:607-652), including the
-  host round trip of the features between the fbank and the encoder. The
-  chunk math is the JAX predictor's for every family (:140-150): a window
-  of (chunk−1)·4 + 7 frames, a stride of chunk·4, (t − 7) // 4 + 1 output
-  frames, divided (rounding up) by the model's ``output_factor`` (the
-  EfficientConformer's strides); DeepSpeech2's step takes the window's
-  frame count and returns its own output length (:632-635) and its state
-  is the RNNs' (h, c). That math assumes ×4 subsampling: an input layer
-  that subsamples otherwise streams wrongly in both packages (ROADMAP
-  Queue C).
+  host round trip of the features between the fbank and the encoder: the
+  model's ``stream_step`` over a window of the predictor's
+  ``ChunkGeometry`` (``models/streaming``), the JAX predictor's chunk math
+  for every family (:140-150), which assumes ×4 subsampling (ROADMAP,
+  "Faults of the reference" item 5). DeepSpeech2's step takes the window's
+  frame count (:632-635) and its state is the RNNs' (h, c).
 - The device frontend (``use_device_frontend=True``) is the fbank kernel:
   with ``feature_method`` ``'mfcc'`` or ``'linear'`` it raises, where the
   JAX predictor runs the fbank in the stream regardless and the host
@@ -97,6 +94,7 @@ from ppasr_tpu_torch.decoders.rescoring import AttentionRescoringDecoder
 from ppasr_tpu_torch.infer_utils.pun_predictor import PunctuationPredictor
 from ppasr_tpu_torch.infer_utils.vad_predictor import VADPredictor
 from ppasr_tpu_torch.models.factory import build_model
+from ppasr_tpu_torch.models.streaming import ChunkGeometry, RunningGain
 from ppasr_tpu_torch.ops.fbank_cuda import fbank_batch, fbank_window
 from ppasr_tpu_torch.utils.checkpoint import (convert_params,
                                               load_inference_params)
@@ -220,18 +218,9 @@ class PPASRPredictor:
 
         # chunk math (ppasr_tpu/predict.py:140-150)
         self.decoding_chunk_size = decoding_chunk_size
-        self.num_decoding_left_chunks = num_decoding_left_chunks
-        self.subsampling = 4
-        self.context = 7
-        self.decoding_window = (decoding_chunk_size - 1) * self.subsampling \
-            + self.context  # 67
-        self.stride = decoding_chunk_size * self.subsampling  # 64
-        left = num_decoding_left_chunks if num_decoding_left_chunks > 0 \
-            else 16  # static cap emulating "all history"
-        self.cache_size = decoding_chunk_size * left
-        # one device window of decoding_window frames
-        self._win_samples = (self.decoding_window - 1) * 160 + 400
-        self._stride_samples = self.stride * 160
+        self.geometry = ChunkGeometry(decoding_chunk_size,
+                                      num_decoding_left_chunks)
+        self.cache_size = self.geometry.cache_size
 
         self._pun_model_dir = pun_model_dir
         self._pun_predictor = None
@@ -434,8 +423,7 @@ class PPASRPredictor:
         self._remained_wav = np.zeros(0, np.float32)
         self._cached_feat = None
         self._state = None
-        self._stream_sq_sum = 0.0
-        self._stream_n = 0
+        self._gain = RunningGain(self._stream_target_db)
         self._stream_enc_chunks = []
         self._stream_probs_chunks = []
         self._stream_decoder = GreedyStreamingDecoder(self.vocab_list)
@@ -467,23 +455,23 @@ class PPASRPredictor:
             audio.resample(16000)
         self._remained_wav = np.concatenate([self._remained_wav,
                                              audio.samples])
-        if audio.num_samples:
-            s = audio.samples
-            self._stream_sq_sum += float(np.sum(s.astype(np.float64) ** 2))
-            self._stream_n += len(s)
+        self._gain.add(audio.samples)
 
         if self.use_device_frontend:
-            score, text = self._predict_stream_device(is_end)
+            self._predict_stream_device(is_end)
         else:
-            score, text = self._predict_stream_host(is_end)
+            self._predict_stream_host(is_end)
         if is_end and self._stream_probs_chunks:
             score, text = self._rescorer.rescore_utterance(
                 self._stream_enc_chunks, self._stream_probs_chunks)
+        else:
+            score, text = self._chunk_decoder.current()
         return self._result(text or '', score or 0.0, use_pun, is_itn)
 
     def _predict_stream_host(self, is_end):
-        """Host-frontend streaming (ppasr_tpu/predict.py:509-555) →
-        (score, text) of the chunk decoder."""
+        """Host-frontend streaming (ppasr_tpu/predict.py:509-555): each
+        whole window, and at ``is_end`` the partial one, through
+        ``_run_chunk``."""
         # featurize everything buffered without gain; the running-RMS gain
         # is added per window as a log-mel offset in _run_chunk
         if len(self._remained_wav) >= 400:
@@ -495,103 +483,67 @@ class PPASRPredictor:
                 self._cached_feat = feat if self._cached_feat is None \
                     else np.concatenate([self._cached_feat, feat])
 
-        result_text, result_score = None, None
+        geo = self.geometry
         while (self._cached_feat is not None
-               and self._cached_feat.shape[0] >= self.decoding_window):
-            window = self._cached_feat[:self.decoding_window]
-            self._cached_feat = self._cached_feat[self.stride:]
-            result_score, result_text = self._chunk_decoder.decode_chunk(
-                self._run_chunk(window))
-
+               and self._cached_feat.shape[0] >= geo.window):
+            window = self._cached_feat[:geo.window]
+            self._cached_feat = self._cached_feat[geo.stride:]
+            self._run_chunk(window)
         if is_end and self._cached_feat is not None \
-                and self._cached_feat.shape[0] >= self.context:
-            window = self._cached_feat       # flush the partial window
+                and self._cached_feat.shape[0] >= geo.context:
+            self._run_chunk(self._cached_feat)
             self._cached_feat = None
-            probs = self._run_chunk(window)
-            if probs.shape[0] > 0:
-                result_score, result_text = \
-                    self._chunk_decoder.decode_chunk(probs)
-
-        if result_text is None:
-            result_score, result_text = self._chunk_decoder.current()
-        return result_score, result_text
 
     def _device_featurize(self, window: np.ndarray) -> np.ndarray:
-        """[win_samples] float32 PCM → [decoding_window, n_mels] log-mel
-        through the fbank kernel on the model's device (the plain version on
-        the CPU), then back to the host as in ppasr_tpu/predict.py:577-580."""
+        """[win_samples] float32 PCM → [window, n_mels] log-mel through the
+        fbank kernel on the model's device (the plain version on the CPU),
+        then back to the host as in ppasr_tpu/predict.py:577-580."""
         wav = torch.from_numpy(np.clip(window * 32768.0, -32768, 32767))
-        feat = fbank_window(wav.to(self.device), self.decoding_window,
+        feat = fbank_window(wav.to(self.device), self.geometry.window,
                             num_mel_bins=self.input_dim)
         return feat.cpu().numpy()
 
     def _predict_stream_device(self, is_end):
         """Device-frontend streaming (ppasr_tpu/predict.py:569-605): raw PCM
         windows go through the fused fbank on the device; the host only
-        slices sample buffers. → (score, text) of the chunk decoder."""
-        result_text, result_score = None, None
-        while len(self._remained_wav) >= self._win_samples:
-            window = self._remained_wav[:self._win_samples]
-            self._remained_wav = self._remained_wav[self._stride_samples:]
-            probs = self._run_chunk(self._device_featurize(window))
-            result_score, result_text = self._chunk_decoder.decode_chunk(
-                probs)
-        if is_end and len(self._remained_wav) >= self.context * 160 + 240:
+        slices sample buffers."""
+        geo = self.geometry
+        while len(self._remained_wav) >= geo.win_samples:
+            window = self._remained_wav[:geo.win_samples]
+            self._remained_wav = self._remained_wav[geo.stride_samples:]
+            self._run_chunk(self._device_featurize(window))
+        if is_end and len(self._remained_wav) >= geo.samples(geo.context):
             # flush: host featurize of the short tail
             seg = AudioSegment(self._remained_wav.copy(), 16000)
             feat = self.stream_featurizer.featurize(seg)
             self._remained_wav = np.zeros(0, np.float32)
-            if feat.shape[0] >= self.context:
-                probs = self._run_chunk(feat)
-                if probs.shape[0] > 0:
-                    result_score, result_text = \
-                        self._chunk_decoder.decode_chunk(probs)
-        if result_text is None:
-            result_score, result_text = self._chunk_decoder.current()
-        return result_score, result_text
+            if feat.shape[0] >= geo.context:
+                self._run_chunk(feat)
 
-    def _stream_gain_offset(self) -> float:
-        """Additive log-mel offset from the running-RMS dB gain estimate."""
-        if self._stream_target_db is None or not self._stream_n:
-            return 0.0
-        rms_db = 10.0 * np.log10(
-            self._stream_sq_sum / self._stream_n + 1e-20)
-        gain_db = min(self._stream_target_db - rms_db, 300.0)
-        return float(gain_db * np.log(10.0) / 10.0)
-
-    def _run_chunk(self, window_feat: np.ndarray) -> np.ndarray:
-        """One encoder chunk step on the device; returns [T_out, V] probs.
-        With attention rescoring, the step's encoder output and posteriors
-        also stay on the device for the final pass."""
-        window_feat = window_feat + self._stream_gain_offset()
+    def _run_chunk(self, window_feat: np.ndarray):
+        """One encoder chunk step on the device, its [T_out, V] posteriors
+        fed to the chunk decoder. With attention rescoring, the step's
+        encoder output and posteriors also stay on the device for the final
+        pass."""
+        window_feat = window_feat + self._gain.offset()
         if self._state is None:
             self._state = self.model.init_state(1, self.cache_size,
                                                 self.device)
-        # pad short flush windows up to decoding_window
-        t = window_feat.shape[0]
-        if t < self.decoding_window:
-            padded = np.zeros((self.decoding_window, window_feat.shape[1]),
-                              np.float32)
+        # pad short flush windows up to the window
+        t, win = window_feat.shape[0], self.geometry.window
+        if t < win:
+            padded = np.zeros((win, window_feat.shape[1]), np.float32)
             padded[:t] = window_feat
             window_feat = padded
         xs = torch.from_numpy(np.ascontiguousarray(
             window_feat[None], np.float32)).to(self.device)
-        if self.use_model == 'deepspeech2':
-            probs, olens, self._state = self.model.get_encoder_out_chunk(
-                xs, torch.tensor([t], device=self.device), self._state)
-            return probs[0, :int(olens[0])].cpu().numpy()
-        valid_out = ((t - self.context) // self.subsampling) + 1
-        factor = self.model.output_factor
-        valid_out = (valid_out + factor - 1) // factor
-        if self._rescorer is None:
-            probs, self._state = self.model.get_encoder_out_chunk(
-                xs, self._state)
-        else:
-            enc, probs, self._state = \
-                self.model.get_encoder_out_chunk_rescore(xs, self._state)
-            self._stream_enc_chunks.append(enc[0, :valid_out])
-            self._stream_probs_chunks.append(probs[0, :valid_out])
-        return probs[0, :valid_out].cpu().numpy()
+        probs, enc, self._state = self.model.stream_step(
+            xs, t, self._state, keep_encoder=self._rescorer is not None)
+        n = self.geometry.n_out(t, self.model.output_factor)
+        if enc is not None:
+            self._stream_enc_chunks.append(enc[0, :n])
+            self._stream_probs_chunks.append(probs[0, :n])
+        self._chunk_decoder.decode_chunk(probs[0, :n].cpu().numpy())
 
     # ------------------------------------------------- punctuation & itn
 

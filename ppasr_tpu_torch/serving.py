@@ -10,13 +10,12 @@ convolution caches never leave the device. Features are made on the host
 through the predictor's ``stream_featurizer``, as the JAX engine makes them.
 
 The engine lock guards both the slot bookkeeping and the batch state; every
-chunk step also runs under ``predict.ieee_float32()``. Every family's state
-is served (:42-56, :66-100): ``stream_axes`` names the stream axis of each
-field of the Conformer's ``StreamingState``, DeepSpeech2's ``DS2State``
-and the per-layer tuples of ``SqueezeformerState`` and ``EffConState``,
-and raises ``TypeError`` for any other state. DeepSpeech2's step takes the
-window length of every slot, the full window's even at a flush (:70-76),
-and has no rescorer; each slot's output frames are divided by the model's
+chunk step also runs under ``utils/precision.ieee_float32()``. Each tick
+is the model's ``stream_step`` over windows of the predictor's
+``ChunkGeometry``, for every family; the state's ``stream_axes`` names its
+stream axes (:42-56, :66-100). DeepSpeech2's step takes the window length
+of every slot, the full window's even at a flush (:70-76), and has no
+rescorer; each slot's output frames are divided by the model's
 ``output_factor`` (:247-250).
 
 With a predictor built with ``decoder='attention_rescoring'``, each tick
@@ -45,30 +44,10 @@ import torch
 
 from ppasr_tpu_torch.data.audio import AudioSegment
 from ppasr_tpu_torch.decoders.greedy import GreedyStreamingDecoder
-from ppasr_tpu_torch.models.conformer_encoder import StreamingState
-from ppasr_tpu_torch.models.deepspeech2 import DS2State
-from ppasr_tpu_torch.models.efficient_conformer import EffConState
-from ppasr_tpu_torch.models.squeezeformer import SqueezeformerState
-from ppasr_tpu_torch.predict import ieee_float32
+from ppasr_tpu_torch.models.streaming import (RunningGain, stream_axes,
+                                              tree_leaves, tree_map)
+from ppasr_tpu_torch.utils.precision import ieee_float32
 from ppasr_tpu_torch.utils.trace import span
-
-
-def tree_leaves(tree) -> list:
-    """The tensors of a NamedTuple or tuple tree, in order."""
-    if isinstance(tree, tuple):
-        return [x for part in tree for x in tree_leaves(part)]
-    return [tree]
-
-
-def tree_map(fn, *trees):
-    """``fn`` over the tensors of equally shaped NamedTuples and tuples,
-    rebuilt as the first tree is."""
-    first = trees[0]
-    if isinstance(first, tuple):
-        out = [tree_map(fn, *parts) for parts in zip(*trees)]
-        return type(first)(*out) if hasattr(first, '_fields') \
-            else tuple(out)
-    return fn(*trees)
 
 
 class StreamingBatchEngine:
@@ -84,36 +63,21 @@ class StreamingBatchEngine:
         with torch.inference_mode():
             self._batch_state = self.model.init_state(
                 max_streams, predictor.cache_size, self.device)
-        self._axes = self.stream_axes(self._batch_state)
+        self._axes = stream_axes(self._batch_state)
         self.state_bytes = sum(x.numel() * x.element_size()
                                for x in tree_leaves(self._batch_state))
         self._rescorer = predictor._rescorer
-        self._ds2 = predictor.use_model == 'deepspeech2'
 
         self._lock = threading.Lock()
         self._free = list(range(max_streams))
         self._buffers = {}     # slot -> np feature buffer
         self._wav_tail = {}    # slot -> un-framed samples
         self._decoders = {}    # slot -> GreedyStreamingDecoder
-        self._gain = {}        # slot -> [sq_sum, n]
+        self._gain = {}        # slot -> RunningGain
         self._rescore_chunks = {}  # slot -> ([enc...], [probs...])
         self.ticks = 0         # batched chunk steps run
         self.windows = 0       # slot-windows those steps served
         self.tick_seconds = 0.0  # host clock over them, results on the host
-
-    @staticmethod
-    def stream_axes(state):
-        """The stream axis of each state field, as a tree of the state's
-        shape (explicit: guessing by size breaks where another dimension
-        equals the stream count)."""
-        if isinstance(state, StreamingState):
-            return StreamingState(0, 0, 1, 1, 1)
-        if isinstance(state, DS2State):
-            return DS2State(1, 1)
-        if isinstance(state, (SqueezeformerState, EffConState)):
-            return type(state)(0, 0, *(tuple(0 for _ in field)
-                                       for field in state[2:]))
-        raise TypeError(f"unknown state type: {type(state)}")
 
     def _select(self, mask, new_state, old_state):
         """New state for the slots in ``mask`` ([S] bool on the device),
@@ -139,7 +103,7 @@ class StreamingBatchEngine:
             self._buffers[slot] = None
             self._wav_tail[slot] = np.zeros(0, np.float32)
             self._decoders[slot] = GreedyStreamingDecoder(self.p.vocab_list)
-            self._gain[slot] = [0.0, 0]
+            self._gain[slot] = RunningGain(self.p._stream_target_db)
             if self._rescorer is not None:
                 self._rescore_chunks[slot] = ([], [])
             self._zero_slot(slot)
@@ -180,10 +144,7 @@ class StreamingBatchEngine:
             try:
                 if slot not in self._gain:
                     raise KeyError(f"stream slot {slot} is not open")
-                if len(s):
-                    self._gain[slot][0] += float(
-                        np.sum(s.astype(np.float64) ** 2))
-                    self._gain[slot][1] += len(s)
+                self._gain[slot].add(s)
                 self._wav_tail[slot] = np.concatenate(
                     [self._wav_tail[slot], s])
 
@@ -217,21 +178,13 @@ class StreamingBatchEngine:
 
     # ------------------------------------------------------------------ tick
 
-    def _gain_offset(self, slot: int) -> float:
-        if self.p._stream_target_db is None or not self._gain[slot][1]:
-            return 0.0
-        sq, n = self._gain[slot]
-        rms_db = 10.0 * np.log10(sq / n + 1e-20)
-        return float(min(self.p._stream_target_db - rms_db, 300.0)
-                     * np.log(10.0) / 10.0)
-
     @torch.inference_mode()
     @ieee_float32()
     def _tick(self, flush_slot: Optional[int] = None):
         """Batch one chunk step over every slot with a ready window, until
         none is ready. Called with the engine lock held."""
-        win, stride, ctx = (self.p.decoding_window, self.p.stride,
-                            self.p.context)
+        geo = self.p.geometry
+        win, stride, ctx = geo.window, geo.stride, geo.context
         while True:
             ready = []          # (slot, whether a whole window is there)
             for slot, buf in self._buffers.items():
@@ -249,33 +202,24 @@ class StreamingBatchEngine:
                     valid = np.zeros((self.max_streams,), np.int32)
                     for slot, full in ready:
                         buf = self._buffers[slot]
+                        gain = self._gain[slot].offset()
                         if full:
-                            windows[slot] = buf[:win] + self._gain_offset(slot)
+                            windows[slot] = buf[:win] + gain
                             valid[slot] = win
                             self._buffers[slot] = buf[stride:]
                         else:       # the flushed stream's last frames
                             t = buf.shape[0]
-                            windows[slot, :t] = buf + self._gain_offset(slot)
+                            windows[slot, :t] = buf + gain
                             valid[slot] = t
                             self._buffers[slot] = None
                 t0 = time.perf_counter()
                 with span('engine.upload'):
                     mask = torch.from_numpy(valid > 0).to(self.device)
                     xs = torch.from_numpy(windows).to(self.device)
-                enc = None
                 with span('engine.step'):
-                    if self._ds2:
-                        probs, _, new_state = self.model.get_encoder_out_chunk(
-                            xs, torch.full((self.max_streams,), win,
-                                           device=self.device),
-                            self._batch_state)
-                    elif self._rescorer is None:
-                        probs, new_state = self.model.get_encoder_out_chunk(
-                            xs, self._batch_state)
-                    else:
-                        enc, probs, new_state = \
-                            self.model.get_encoder_out_chunk_rescore(
-                                xs, self._batch_state)
+                    probs, enc, new_state = self.model.stream_step(
+                        xs, win, self._batch_state,
+                        keep_encoder=self._rescorer is not None)
                 with span('engine.select'):
                     self._batch_state = self._select(mask, new_state,
                                                      self._batch_state)
@@ -284,12 +228,10 @@ class StreamingBatchEngine:
                 self.ticks += 1
                 self.windows += len(ready)
                 self.tick_seconds += time.perf_counter() - t0
-                factor = 1 if self._ds2 else self.model.output_factor
                 with span('engine.decode'):
                     for slot, _ in ready:
-                        n_out = ((int(valid[slot]) - ctx)
-                                 // self.p.subsampling) + 1
-                        n_out = max((n_out + factor - 1) // factor, 0)
+                        n_out = geo.n_out(int(valid[slot]),
+                                          self.model.output_factor)
                         self._decoders[slot].decode_chunk(
                             probs_np[slot][:n_out])
                         if enc is not None and slot in self._rescore_chunks:

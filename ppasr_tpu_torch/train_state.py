@@ -87,7 +87,7 @@ from ppasr_tpu_torch.ops.masks import DeviceChunk
 from ppasr_tpu_torch.parallel.distributed import all_reduce_sum
 from ppasr_tpu_torch.parallel.tensor_parallel import (is_sharded,
                                                       sync_replicated_grads)
-from ppasr_tpu_torch.predict import ieee_float32
+from ppasr_tpu_torch.utils.precision import ieee_float32
 from ppasr_tpu_torch.utils.trace import span
 
 METRICS = ('loss', 'loss_att', 'loss_ctc', 'th_accuracy')

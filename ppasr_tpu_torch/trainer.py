@@ -104,7 +104,6 @@ from ppasr_tpu_torch.models.factory import build_model
 from ppasr_tpu_torch.models.streaming_eval import (streaming_encode_batch,
                                                    streaming_greedy_batch)
 from ppasr_tpu_torch.parallel.distributed import barrier, init_distributed
-from ppasr_tpu_torch.predict import ieee_float32
 from ppasr_tpu_torch.train_state import (TrainState, create_train_state,
                                          data_parallel, fold_in,
                                          make_train_step)
@@ -113,6 +112,7 @@ from ppasr_tpu_torch.utils.checkpoint import (convert_params, export_params,
 from ppasr_tpu_torch.utils.common import dict_to_object, labels_to_string
 from ppasr_tpu_torch.utils.logger import setup_logger
 from ppasr_tpu_torch.utils.metrics import cer, wer
+from ppasr_tpu_torch.utils.precision import ieee_float32
 from ppasr_tpu_torch.utils.quant import quantize_params
 
 logger = setup_logger(__name__)

@@ -100,6 +100,21 @@ def test_import_leaves_no_forbidden_module_loaded():
     assert out.stdout.strip() == '[]', out.stdout
 
 
+@pytest.mark.parametrize('module', ['train_state', 'trainer', 'serving',
+                                    'models.streaming_eval'])
+def test_lower_layers_do_not_load_the_predictor(module):
+    """Imports point down: the train step, the trainer, the engine and the
+    streaming eval take ``ieee_float32`` from ``utils/precision``, so none
+    loads the predictor module."""
+    code = (f"import sys, ppasr_tpu_torch.{module}; "
+            f"print('ppasr_tpu_torch.predict' in sys.modules)")
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == 'False'
+
+
 def test_server_imports_websockets_only_when_it_starts():
     """The server imports ``websockets`` inside ``RecognitionServer.start``,
     never at the top, so its HTTP side runs where the package is absent."""

@@ -24,6 +24,7 @@ from ppasr_tpu.serving import StreamingBatchEngine as JaxEngine
 import ppasr_tpu_torch.decoders.greedy as port_greedy
 import ppasr_tpu_torch.predict as port_predict
 from ppasr_tpu_torch.models.conformer_encoder import StreamingState
+from ppasr_tpu_torch.models.streaming import stream_axes
 from ppasr_tpu_torch.predict import PPASRPredictor
 from ppasr_tpu_torch.serving import StreamingBatchEngine
 
@@ -103,12 +104,12 @@ def test_stream_axes_name_the_layout():
     from ppasr_tpu_torch.models.squeezeformer import SqueezeformerState
     z = torch.zeros(1)
     state = StreamingState(*(z for _ in range(5)))
-    assert StreamingBatchEngine.stream_axes(state) == (0, 0, 1, 1, 1)
-    assert StreamingBatchEngine.stream_axes(DS2State(z, z)) == (1, 1)
+    assert state.stream_axes() == (0, 0, 1, 1, 1)
+    assert stream_axes(state) == (0, 0, 1, 1, 1)
+    assert DS2State(z, z).stream_axes() == (1, 1)
     for cls in (SqueezeformerState, EffConState):
-        axes = StreamingBatchEngine.stream_axes(
-            cls(z, z, (z, z, z), (z, z, z), (z, z, z)))
+        axes = stream_axes(cls(z, z, (z, z, z), (z, z, z), (z, z, z)))
         assert type(axes) is cls
         assert axes == (0, 0, (0, 0, 0), (0, 0, 0), (0, 0, 0))
     with pytest.raises(TypeError, match='unknown state type'):
-        StreamingBatchEngine.stream_axes((torch.zeros(1), torch.zeros(1)))
+        stream_axes((torch.zeros(1), torch.zeros(1)))

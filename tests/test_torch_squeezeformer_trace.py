@@ -16,8 +16,9 @@ import pytest
 import torch
 
 from ppasr_tpu_torch.models.factory import build_model
+from ppasr_tpu_torch.models.streaming import tree_leaves
 from ppasr_tpu_torch.predict import PPASRPredictor
-from ppasr_tpu_torch.serving import StreamingBatchEngine, tree_leaves
+from ppasr_tpu_torch.serving import StreamingBatchEngine
 from ppasr_tpu_torch.utils import trace
 from ppasr_tpu_torch.utils.checkpoint import export_params, save_msgpack
 

@@ -11,12 +11,12 @@ weights converted with ``convert_params``:
   scale;
 - a Conformer with each of the three input layers, offline.
 
-And a fault of the reference that the port keeps (ROADMAP Queue C): the
-predictors' streaming chunk math (window 67, stride 64, (t − 7) // 4 + 1
-output frames) assumes ×4 subsampling. With ``conv2d`` one window's step
-gives the 16 frames the stride advances; with ``conv2d6``, ``conv2d8`` and
-the EfficientConformer's ``conv2d2`` (×2, then ×2 by its stride) it gives
-another count, in both packages alike.
+And a fault of the reference that the port keeps (ROADMAP, "Faults of
+the reference" item 5): the predictors' streaming chunk math (window 67,
+stride 64, (t − 7) // 4 + 1 output frames) assumes ×4 subsampling. With
+``conv2d`` one window's step gives the 16 frames the stride advances; with
+``conv2d6``, ``conv2d8`` and the EfficientConformer's ``conv2d2`` (×2,
+then ×2 by its stride) it gives another count, in both packages alike.
 
 Tolerance 1e-5 absolute (float32; tests/test_torch_models.py's).
 """
@@ -31,7 +31,10 @@ from ppasr_tpu.models.convolution import ConvolutionModule as JaxConv
 from ppasr_tpu.models.factory import build_model as jax_build_model
 from ppasr_tpu_torch.models import subsampling as tsub
 from ppasr_tpu_torch.models.convolution import ConvolutionModule
+from ppasr_tpu_torch.models.deepspeech2 import (Conv2dSubsampling4Pure,
+                                                DeepSpeech2Model)
 from ppasr_tpu_torch.models.factory import build_model
+from ppasr_tpu_torch.models.streaming import ChunkGeometry
 from ppasr_tpu_torch.utils.checkpoint import convert_params
 from torch_train_util import one_torch_thread  # noqa: F401
 
@@ -134,9 +137,25 @@ def test_conformer_input_layers_match_jax(layer):
 
 
 # the predictors' chunk math (ppasr_tpu/predict.py:143-146, the port's
-# predict.py): window (16 − 1)·4 + 7 = 67 frames, stride 64, and
-# (67 − 7) // 4 + 1 = 16 output frames assumed per window
+# models/streaming.ChunkGeometry): window (16 − 1)·4 + 7 = 67 frames, stride
+# 64, and (67 − 7) // 4 + 1 = 16 output frames assumed per window
 WINDOW, STRIDE, ASSUMED = 67, 64, 16
+
+
+def test_geometry_is_the_predictors_chunk_math():
+    """The one geometry every streaming loop reads gives the numbers the
+    fault below is pinned on, and its count of a window's outputs is
+    DeepSpeech2's own ((t − 1) // 2 − 1) // 2 at every flush length a
+    loop runs (t ≥ 7), which the engine and the predictor slice by."""
+    g = ChunkGeometry(16)
+    assert (g.window, g.stride, g.n_out(g.window)) == (WINDOW, STRIDE,
+                                                       ASSUMED)
+    assert (g.cache_size, ChunkGeometry(16, 2).cache_size) == (256, 32)
+    assert (g.win_samples, g.stride_samples) == (66 * 160 + 400, 64 * 160)
+    t = torch.arange(g.context, 4 * WINDOW)
+    np.testing.assert_array_equal(
+        g.n_out(t.numpy(), DeepSpeech2Model.output_factor),
+        Conv2dSubsampling4Pure.out_len(t).numpy())
 
 
 @pytest.mark.parametrize('use_model,layer,consistent', [
